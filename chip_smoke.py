@@ -4,23 +4,41 @@
 
 Phases, each printing its own line; any failure exits nonzero:
   1. the card: name, power limit, torch and CUDA versions (no card: fail);
-  2. build the CUDA kernels from tpu_olap_torch/csrc (one nvcc per
-     source, all at once) and print each -Xptxas -v report;
-  3. hold the fused kernel against its plain torch version on the card
-     on synthetic row programs at the main path's row count, K from 1 to
-     65,536 (shared and global group tables; exact equality);
-  4. the main path: SSB at SF1 (6,000,000 lineorder rows, seed 0)
-     registered once, all 13 queries through Engine.sql with the fused
-     kernel ("auto") and with the generic torch reduce ("never"); the
-     frames must agree, two must agree with an independent pandas
-     reference, and the kernel must launch on every query. Every launch
-     of the main path is then replayed through the kernel and its plain
-     version (exact equality) — after the launch counts are read;
+  2. build: the interpreter kernel from tpu_olap_torch/csrc with nvcc (in
+     the background), NVRTC located, SSB at SF1 (6,000,000 lineorder
+     rows, seed 0) generated and registered, and each of the 13 queries
+     run once through Engine.sql: lowering generates and compiles the
+     plan's kernel with NVRTC (the on-disk cubin cache is emptied
+     first), so this run's latency includes the compile. Per plan: compile
+     ms, registers, spill bytes, stack, shared memory, blocks per SM.
+     Then each query once more with other literals
+     (ssb.QUERIES_OTHER_LITERALS): a new plan whose program has the
+     same structure, so it must reuse the kernel (NVRTC compiles and
+     first-run latency printed);
+  3. hold the generated kernel and the interpreter against the plain
+     torch version on the card on synthetic row programs at the main
+     path's row count, K from 1 to 65,536 (shared and global group
+     tables; each case compiles its own kernel; exact equality);
+  4. the main path: all 13 queries through Engine.sql with the fused
+     kernel ("auto", counts set to 0 just before) and with the generic
+     torch reduce ("never"); the frames must agree, two must agree with
+     an independent pandas reference, and the generated kernel must
+     launch on every query and the interpreter on none. Every launch of
+     the main path is then replayed through the generated kernel, the
+     interpreter and the plain version (exact equality) — after the
+     launch counts are read. The queries with other literals must agree
+     with the generic reduce too, and their launches are replayed the
+     same way;
   5. timings, each beside the card's name and power limit: per-query
-     p50s of both modes; the kernel's device time at q1.1's, q2.1's and
-     q2.2's inputs beside its bound, its plain version's time and one
-     torch index_add_ call over the pre-selected rows (the yardstick of
-     the reduce half); a per-query time breakdown.
+     p50s of both modes and each query's first (compile-included) run;
+     an A/B in turns (interpreter, generated, generated, interpreter) of
+     device time at q1.1's, q2.1's, q2.2's, q3.1's and q4.3's inputs,
+     beside the bound, the plain version's time and one torch index_add_
+     call over the pre-selected rows (the yardstick of the reduce half);
+     a per-query time breakdown. Kernel times are taken twice: with the
+     inputs warm in L2 from the launch before, and cold (L2 overwritten
+     before each launch, the overwrite not counted); the JSON line
+     carries the cold times.
 The second-to-last lines are the kernel table as JSON and the card's
 `nvidia-smi` name and power limit; the last line is the result JSON.
 """
@@ -31,10 +49,16 @@ import argparse
 import json
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
-SCALAR_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate
+# The row programs are integer code: 132 SMs x 64 INT32 lanes x 1.98 GHz
+# (H100 SXM boost clock) = 16.7e12 32-bit integer operations per second.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+GEN_KERNEL = "fused_reduce_gen"        # the generated kernel's name
+INTERP_KERNEL = "fused_reduce_kernel"  # the interpreter's
+AB_QUERIES = ("q1.1", "q2.1", "q2.2", "q3.1", "q4.3")
 
 
 def fail(msg: str):
@@ -54,26 +78,41 @@ def smi_line() -> str:
         return f"nvidia-smi unavailable: {e}"
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters launches (CUDA events)."""
+def cuda_ms(fn, iters: int, between=None) -> float:
+    """Mean device time of fn() over iters launches (CUDA events); with
+    `between`, it runs before each launch and each launch is timed on
+    its own, so its time is not counted."""
     import torch
     fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
+    if between is None:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+    pairs = []
     for _ in range(iters):
+        between()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         fn()
-    b.record()
+        b.record()
+        pairs.append((a, b))
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def device_ms(fn, iters: int, kernel: str = ""):
+def device_ms(fn, iters: int, kernel: str = "", between=None):
     """Device time of one fn() call, summed over the kernels it launches
     whose name holds `kernel` (torch.profiler, CUDA activity), or None
     when the profiler records no device time. Unlike CUDA events around
-    a loop, host launch gaps do not count."""
+    a loop, host launch gaps do not count. `between` runs before each
+    call; its kernels count only if their names hold `kernel`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -81,6 +120,8 @@ def device_ms(fn, iters: int, kernel: str = ""):
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if between is not None:
+                    between()
                 fn()
             torch.cuda.synchronize()
     except RuntimeError:  # CUPTI unavailable: fall back to events
@@ -90,13 +131,13 @@ def device_ms(fn, iters: int, kernel: str = ""):
     return total / iters / 1000 if total > 0 else None
 
 
-def timed(fn, iters: int, kernel: str = ""):
+def timed(fn, iters: int, kernel: str = "", between=None):
     """(ms, how): device time per call under the profiler, else the
     CUDA-event time of back-to-back calls."""
-    ms = device_ms(fn, iters, kernel)
+    ms = device_ms(fn, iters, kernel, between)
     if ms is not None:
         return ms, "profiler device time"
-    return cuda_ms(fn, iters), "CUDA events"
+    return cuda_ms(fn, iters, between), "CUDA events"
 
 
 def device_busy(eng, queries) -> str:
@@ -120,7 +161,7 @@ def device_busy(eng, queries) -> str:
         evs = prof.key_averages()
         dev = sum(e.self_device_time_total for e in evs) / 1000
         fused = sum(e.self_device_time_total for e in evs
-                    if "fused_reduce_kernel" in e.key) / 1000
+                    if GEN_KERNEL in e.key) / 1000
         if dev <= 0:
             return "device busy: not measured (profiler saw no device time)"
         parts.append(f"{name} busy {dev:.3f} ms of {wall:.3f} ms "
@@ -192,40 +233,65 @@ def kernel_bound(prog, inputs, valid, seg_mask, K, sums):
     """(bytes_ms, ops_ms, bytes): the least time of one call with these
     inputs. Bytes: each row's valid byte; the streams of the mask's cone
     for every valid row of a kept segment; the other streams the program
-    reads for the rows that pass; the program, its tables and the group
-    tables once. Operations: the cone's instructions per valid row, the
-    rest and one update per column per passing row."""
+    reads for the rows that pass; the program's tables and the group
+    tables once. Operations: the cone's arithmetic instructions per
+    valid row of a kept segment, the rest and one update per column per
+    passing row, over the card's INT32 rate. Each instruction counts as
+    one operation, including those the generated kernel still computes
+    in 64 bits (several 32-bit instructions each), so the operations
+    bound stays a lower bound."""
+    import numpy as np
+    from tpu_olap_torch.kernels import rowprog
     n_base = int((valid & seg_mask[:, None]).sum())
     n_sel = int(sums[:, 0].sum())   # column 0 is _rows
-    read = valid.numel() + seg_mask.numel() + prog.ins.nbytes \
-        + prog.data.nbytes
+    read = valid.numel() + seg_mask.numel() + prog.data.nbytes
     for s in prog.loaded_slots:
         rows = n_base if s in prog.cone_slots else n_sel
         read += rows * inputs[s].element_size()
     written = K * (8 * prog.n_sum + 4 * (prog.n_cols - prog.n_sum))
     pc = prog.exit_pc
-    ops = (pc - prog.n_pro) * n_base \
-        + (len(prog.ins) - pc - 1 + prog.n_cols) * n_sel
+    alu = ~np.isin(prog.ins[:, 0], (rowprog.LOAD, rowprog.IMM,
+                                    rowprog.EXITZ))
+    ops = int(alu[:pc].sum()) * n_base \
+        + (int(alu[pc + 1:].sum()) + prog.n_cols) * n_sel
     return ((read + written) / HBM_BYTES_PER_S * 1e3,
-            ops / SCALAR_OPS_PER_S * 1e3, read + written)
+            ops / INT32_OPS_PER_S * 1e3, read + written)
 
 
 def check_kernel(fr, case, label):
-    """Kernel vs plain version on one case; fails on any difference."""
+    """Generated kernel and interpreter vs the plain version on one case;
+    fails on any difference. Returns (max error, generated outputs)."""
     import torch
     got = fr.fused_reduce(*case)
+    interp = fr.fused_reduce_interp(*case)
     torch.cuda.synchronize()
     want = fr.fused_reduce_ref(*case)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        if g.shape != w.shape or g.dtype != w.dtype:
-            fail(f"kernel output {g.shape}/{g.dtype} vs plain "
-                 f"{w.shape}/{w.dtype} at {label}")
-    err = max_abs_diff(got, want)
-    if err:
-        fail(f"kernel disagrees with its plain version at {label}: "
-             f"max |kernel - plain| = {err}")
-    return err, got
+    errs = []
+    for which, out in (("generated", got), ("interpreter", interp)):
+        for g, w in zip(out, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{which} kernel output {g.shape}/{g.dtype} vs plain "
+                     f"{w.shape}/{w.dtype} at {label}")
+        errs.append(max_abs_diff(out, want))
+        if errs[-1]:
+            fail(f"{which} kernel disagrees with the plain version at "
+                 f"{label}: max |kernel - plain| = {errs[-1]}")
+    return max(errs), got
+
+
+def plan_report(kern) -> str:
+    """A generated kernel's compile record, one line."""
+    r = kern.report
+    spill = r.get("spill_bytes", "not reported")
+    return (f"compile {kern.compile_ms:.1f} ms"
+            f"{' (disk cache)' if kern.cached else ''}, "
+            f"{kern.registers} registers (ptxas: "
+            f"{r.get('registers', 'not reported')}), spill bytes {spill}, "
+            f"stack {r.get('stack_bytes', 'not reported')} B, local "
+            f"{kern.local_bytes} B, shared table {kern.smem_bytes} B, "
+            f"{kern.blocks_per_sm} blocks of {kern.threads} threads per SM "
+            f"({kern.max_blocks} launched at most)")
 
 
 def main():
@@ -250,21 +316,107 @@ def main():
 
     kind = torch.cuda.get_device_name(0)
     card = smi_line()
+    tag = f"({kind}, {card})"
     print(f"[1 card] {kind} | nvidia-smi: {card} | torch {torch.__version__}"
           f" cuda {torch.version.cuda} | devices "
           f"{torch.cuda.device_count()}", flush=True)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    reports = cuda_build.build(["fused_reduce"])
-    print(f"[2 build] {len(reports)} kernel(s) in "
+    reports, build_error = {}, []
+    # every call of the wrapper is recorded by (phase, query): its inputs,
+    # not copies, so it can be replayed against the plain version later
+    calls, current = {}, [None]
+    real = fr.fused_reduce
+
+    def record(*a):
+        calls.setdefault(current[0], a)
+        return real(*a)
+
+    def build_interp():
+        try:
+            reports.update(cuda_build.build(["fused_reduce"]))
+        except Exception as e:  # reported and failed on below
+            build_error.append(e)
+
+    nvcc_thread = threading.Thread(target=build_interp)
+    nvcc_thread.start()
+    print(f"[2 build] {cuda_build.nvrtc_version()} found; options "
+          f"{' '.join(cuda_build.NVRTC_OPTIONS)}", flush=True)
+    for f in list(cuda_build.BUILD.glob("gen-*")):
+        f.unlink()  # compile every plan anew: compile ms are this run's
+    tables = ssb.generate_tables(args.rows, seed=0)
+    eng = Engine()  # device "cuda", use_fused_reduce "auto"
+    _, denorm = ssb.register_ssb(eng, tables=tables)
+    seg = eng.catalog.get("lineorder").segments
+    print(f"[2 ssb] generated and registered {seg.num_rows} rows in "
+          f"{len(seg.segments)} segments in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    first_ms, plan_kernels, frames = {}, {}, {}
+
+    def first_run(phase, name, q):
+        """(ms, kernel, NVRTC compiles) of the query's first run."""
+        current[0] = (phase, name)
+        n_kernels = len(cuda_build._kernels)
+        t = time.perf_counter()
+        frames[(phase, name)] = eng.sql(q)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1000
+        a = calls.get((phase, name))
+        if a is None:
+            fail(f"{name} ({phase}) made no fused-reduce call: "
+                 f"{eng.runner.last_metrics.get('fused_reason')}")
+        return (ms, fr.compiled(a[0], a[4], "cuda"),
+                len(cuda_build._kernels) - n_kernels)
+
+    fr.fused_reduce = record
+    try:
+        for name, q in ssb.QUERIES.items():
+            first_ms[name], kern, n_new = first_run("first", name, q)
+            shared = [n for n, k in plan_kernels.items() if k is kern]
+            plan_kernels[name] = kern
+            what = f"shares the kernel of {shared[0]}" if shared else \
+                plan_report(kern)
+            print(f"[2 plan] {name}: {what}; NVRTC compiles {n_new}; first "
+                  f"run {first_ms[name]:.1f} ms (lower "
+                  f"{eng.runner.last_metrics['lower_ms']:.1f} ms) {tag}",
+                  flush=True)
+        kernels = list({id(k): k for k in plan_kernels.values()}.values())
+        spilled = [n for n, k in plan_kernels.items()
+                   if k.report.get("spill_bytes", 0) > 0]
+        print(f"[2 plan] 13 plans, {len(kernels)} kernels compiled in "
+              f"{sum(k.compile_ms for k in kernels):.1f} ms of NVRTC; "
+              f"plans that spill: {spilled or 'none'}", flush=True)
+        # the queries with other literals: new plans of the same structure
+        other_ms, other_compiles = {}, 0
+        for name, q in ssb.QUERIES_OTHER_LITERALS.items():
+            other_ms[name], kern, n_new = first_run("other", name, q)
+            other_compiles += n_new
+            same = kern is plan_kernels[name]
+            print(f"[2 literals] {name} with other literals: first run "
+                  f"{other_ms[name]:.1f} ms (lower "
+                  f"{eng.runner.last_metrics['lower_ms']:.1f} ms) against "
+                  f"{first_ms[name]:.1f} ms; NVRTC compiles {n_new}; "
+                  + ("reuses the query's kernel" if same else
+                     f"a kernel of its own: {plan_report(kern)}")
+                  + f" {tag}", flush=True)
+    finally:
+        fr.fused_reduce = real
+    print(f"[2 literals] 13 queries with other literals: {other_compiles} "
+          f"NVRTC compiles, first runs {min(other_ms.values()):.1f}-"
+          f"{max(other_ms.values()):.1f} ms (the queries' own first runs, "
+          f"compile included: {min(first_ms.values()):.1f}-"
+          f"{max(first_ms.values()):.1f} ms) {tag}", flush=True)
+    nvcc_thread.join()
+    if build_error:
+        fail(f"nvcc build of the interpreter failed: {build_error[0]}")
     for name, log in reports.items():
         for ln in log.splitlines():
             if any(w in ln for w in ("registers", "spill", "Compiling")):
                 print(f"[2 build] {name}: {ln.strip()}", flush=True)
+    print(f"[2 build] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # -- 3. kernel vs plain version ------------------------------------------
+    # -- 3. kernels vs plain version ----------------------------------------
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     max_err = 0
@@ -274,38 +426,20 @@ def main():
             err, _ = check_kernel(fr, case, f"K={K}")
             max_err = max(max_err, err)
             prog = case[0]
-            smem = K * (8 * prog.n_sum + 4 * (prog.n_cols - prog.n_sum))
-            path = "shared" if smem <= fr.SMEM_TABLE_BYTES else "global"
+            kern = fr.compiled(prog, K, "cuda")
+            path = "shared" if kern.smem_bytes else "global"
             print(f"[3 kernel] N={case[2].numel()} K={K} "
                   f"{'mixed' if mixed else 'ssb'} ({path} table, "
-                  f"{len(prog.ins)} instructions, {prog.n_regs} registers)"
-                  f": max |kernel - plain| = {err}", flush=True)
+                  f"{len(prog.ins)} instructions; generated: "
+                  f"{plan_report(kern)}): max |generated - plain| = "
+                  f"max |interpreter - plain| = {err}", flush=True)
     del case
 
     # -- 4. the main path --------------------------------------------------
-    t0 = time.perf_counter()
-    tables = ssb.generate_tables(args.rows, seed=0)
-    eng = Engine()  # device "cuda", use_fused_reduce "auto"
-    _, denorm = ssb.register_ssb(eng, tables=tables)
-    seg = eng.catalog.get("lineorder").segments
-    print(f"[4 ssb] generated and registered {seg.num_rows} rows in "
-          f"{len(seg.segments)} segments in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-
-    # every main-path call of the wrapper is recorded (its inputs, not
-    # copies) so it can be replayed against the plain version afterwards
-    calls = {}
-    real = fr.fused_reduce
-
-    def record(*a):
-        calls.setdefault(current[0], a)
-        return real(*a)
-
-    current = [None]
-    frames = {}
     per_query = {}
     fr.fused_reduce = record
     fr.launches = 0
+    fr.interp_launches = 0
     try:
         for name, q in ssb.QUERIES.items():
             current[0] = name
@@ -316,23 +450,31 @@ def main():
                 fail(f"{name} did not take the fused reduce: "
                      f"{eng.runner.last_metrics.get('fused_reason')}")
         torch.cuda.synchronize()
-        launches = fr.launches
+        launches, interp_launches = fr.launches, fr.interp_launches
     finally:
         fr.fused_reduce = real
     missing = [n for n, c in per_query.items() if c < 1]
     if missing:
-        fail(f"fused_reduce launched no time on {missing}")
+        fail(f"the generated kernel launched no time on {missing}")
+    if interp_launches:
+        fail(f"the main path launched the interpreter {interp_launches} "
+             "times")
     eng.config.use_fused_reduce = "never"
     before = fr.launches
     for name, q in ssb.QUERIES.items():
         frames[("never", name)] = eng.sql(q)
     if fr.launches != before:
         fail("the kernel launched under use_fused_reduce='never'")
+    for name, q in ssb.QUERIES_OTHER_LITERALS.items():
+        frames[("never other", name)] = eng.sql(q)
     for name in ssb.QUERIES:
         a, b = frames[("auto", name)], frames[("never", name)]
         if len(a) == 0:
             fail(f"{name} returned no rows")
         assert_frame_parity(a, b, label=name)
+        assert_frame_parity(frames[("other", name)],
+                            frames[("never other", name)],
+                            label=f"{name} with other literals")
     # independent pandas reference for one ungrouped and one grouped query
     d = denorm
     m = (d.d_year == 1993) & d.lo_discount.between(1, 3) & \
@@ -349,25 +491,33 @@ def main():
                         ref21[["d_year", "p_brand1", "revenue"]]
                         .astype({"d_year": np.int64}), label="q2.1/pandas")
     print(f"[4 ssb] 13/13 queries: fused == generic torch reduce, q1.1 and "
-          f"q2.1 == pandas; kernel launches per query "
-          f"{json.dumps(per_query)}", flush=True)
-    # replay each query's launch: kernel vs plain version, same inputs,
-    # and the kernel's device time there
-    tag = f"({kind}, {card})"
+          f"q2.1 == pandas, the 13 with other literals == generic "
+          f"torch reduce; generated-kernel launches per query "
+          f"{json.dumps(per_query)} ({launches} in all), interpreter "
+          f"launches {interp_launches}", flush=True)
+    # replay each query's launch: generated kernel, interpreter and plain
+    # version on the same inputs
     shapes = {}
-    for name, a in calls.items():
+    main_calls = {k: a for k, a in calls.items() if isinstance(k, str)}
+    other_err = max(check_kernel(fr, calls[("other", name)],
+                                 f"{name} with other literals")[0]
+                    for name in ssb.QUERIES)
+    max_err = max(max_err, other_err)
+    print(f"[4 replay] the 13 launches with other literals: max |generated "
+          f"- plain| = max |interpreter - plain| = {other_err}", flush=True)
+    for name, a in main_calls.items():
         err, got = check_kernel(fr, a, name)
         max_err = max(max_err, err)
         prog = a[0]
         shapes[name] = (a, got[0])
-        ms, _ = timed(lambda: fr.fused_reduce(*a), 10, "fused_reduce_kernel")
-        print(f"[4 replay] {name}: kernel {ms:.4f} ms {tag}; "
-              f"{len(prog.ins)} instructions "
+        kern = fr.compiled(prog, a[4], "cuda")
+        print(f"[4 replay] {name}: {len(prog.ins)} instructions "
               f"({prog.n_pro} immediates, then {prog.exit_pc - prog.n_pro} "
-              f"per row before EXITZ), {prog.n_regs} registers, "
-              f"{len(prog.loaded_slots)} streams read, K={a[4]}, "
-              f"{prog.n_cols} columns: max |kernel - plain| = {err}",
-              flush=True)
+              f"per row before EXITZ), {len(prog.loaded_slots)} streams "
+              f"read ({len(prog.cone_slots)} in the mask's cone), K={a[4]}, "
+              f"{prog.n_cols} columns, grid {kern.last_grid} blocks: "
+              f"max |generated - plain| = max |interpreter - plain| = "
+              f"{err}", flush=True)
 
     # -- 5. timings --------------------------------------------------------
     p50 = {}
@@ -383,7 +533,9 @@ def main():
             p50[(mode, name)] = float(np.median(ts))
     for name in ssb.QUERIES:
         print(f"[5 query] {name} p50 fused {p50[('auto', name)]:.3f} ms | "
-              f"generic {p50[('never', name)]:.3f} ms {tag}", flush=True)
+              f"generic {p50[('never', name)]:.3f} ms | first run "
+              f"(compile included) {first_ms[name]:.1f} ms {tag}",
+              flush=True)
 
     # where the time goes: one more run per query, split by the runner's
     # own timers, then one under torch.profiler for the device's busy time
@@ -400,14 +552,35 @@ def main():
               f"{m['assemble_ms']:.3f} ms {tag}", flush=True)
     print(f"[5 device] {device_busy(eng, ssb.QUERIES)} {tag}", flush=True)
 
-    # the kernel at the main path's inputs, as recorded in phase 4
+    # the kernels at the main path's inputs, as recorded in phase 4: the
+    # interpreter and the generated kernel in turns on one card, first
+    # with the inputs left in the 50 MB L2 by the launch before (warm),
+    # then with L2 overwritten before every launch (cold: the bytes come
+    # from HBM, as the bound assumes)
+    l2 = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush_l2():
+        l2.fill_(1)
+
     rows = []
-    for name in ("q1.1", "q2.1", "q2.2"):
+    for name in AB_QUERIES:
         a, sums = shapes[name]
         prog, inputs, valid, seg_mask, K = a
         bytes_ms, ops_ms, nbytes = kernel_bound(*a, sums)
-        ms, ms_how = timed(lambda: fr.fused_reduce(*a), 20,
-                           "fused_reduce_kernel")
+        bound = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        turns, cold = [], []
+        for which in ("interp", "gen", "gen", "interp"):
+            fn = fr.fused_reduce if which == "gen" else fr.fused_reduce_interp
+            kname = GEN_KERNEL if which == "gen" else INTERP_KERNEL
+            ms, ms_how = timed(lambda: fn(*a), 20, kname)
+            turns.append(ms)
+        for which in ("interp", "gen", "gen", "interp"):
+            fn = fr.fused_reduce if which == "gen" else fr.fused_reduce_interp
+            kname = GEN_KERNEL if which == "gen" else INTERP_KERNEL
+            cold.append(timed(lambda: fn(*a), 20, kname, flush_l2)[0])
+        interp_ms = (cold[0] + cold[3]) / 2
+        gen_ms = (cold[1] + cold[2]) / 2
         plain_ms, _ = timed(lambda: fr.fused_reduce_ref(*a), 5)
         # yardstick: one torch call reducing the same sum columns over the
         # selected rows' keys, gathered outside the timing
@@ -423,24 +596,37 @@ def main():
         lib_ms, _ = timed(lambda: out.index_add_(0, k_sel, src), 20)
         event_ms = cuda_ms(lambda: fr.fused_reduce(*a), 20)
         n_sel = int(sums[:, 0].sum())
+        kern = fr.compiled(prog, K, "cuda")
         del regs, sel, src, out
-        print(f"[5 kernel] fused_reduce at {name} (N={valid.numel()}, "
-              f"selected {n_sel}, K={K}, columns {prog.n_cols}, "
-              f"{len(prog.ins)} instructions): {ms:.4f} ms ({ms_how}) | "
-              f"bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes} B, "
-              f"{'bytes' if bytes_ms >= ops_ms else 'operations'}) | "
-              f"plain {plain_ms:.4f} ms | index_add_ over the selected "
-              f"rows {lib_ms:.4f} ms | back-to-back wrapper calls between "
-              f"CUDA events {event_ms:.4f} ms each {tag}", flush=True)
+        warm_gain = (turns[0] + turns[3]) / (turns[1] + turns[2])
+        print(f"[5 kernel] at {name} (N={valid.numel()}, rows in kept "
+              f"segments {int((valid & seg_mask[:, None]).sum())}, selected "
+              f"{n_sel}, K={K}, columns {prog.n_cols}): warm L2: "
+              f"interpreter {turns[0]:.4f} / {turns[3]:.4f} ms, generated "
+              f"{turns[1]:.4f} / {turns[2]:.4f} ms ({ms_how}, in turns) = "
+              f"{warm_gain:.2f}x; cold L2: interpreter {cold[0]:.4f} / "
+              f"{cold[3]:.4f} ms, generated {cold[1]:.4f} / {cold[2]:.4f} "
+              f"ms = {interp_ms / gen_ms:.2f}x | bound {bound:.4f} ms "
+              f"({nbytes} B, {by}; bytes {bytes_ms:.4f}, operations "
+              f"{ops_ms:.4f}) = generated at {gen_ms / bound:.1f}x the bound "
+              f"cold, {(turns[1] + turns[2]) / 2 / bound:.1f}x warm | plain "
+              f"{plain_ms:.4f} ms | index_add_ over the selected rows "
+              f"{lib_ms:.4f} ms | back-to-back wrapper calls between CUDA "
+              f"events {event_ms:.4f} ms each | grid {kern.last_grid} "
+              f"blocks ({kern.blocks_per_sm} per SM) {tag}", flush=True)
+        # ms: cold-L2 device time, the bound's own terms
+        common = {"max_abs_err": max_err, "plain_ms": plain_ms,
+                  "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                  "at": name}
         rows.append({"name": "fused_reduce", "route": "cuda",
+                     "source": "tpu_olap_torch/csrc/fused_reduce_gen.cuh",
+                     "replaces": "tpu_olap/kernels/pallas_reduce.py:536",
+                     "launches": launches, "ms": gen_ms, **common})
+        rows.append({"name": "fused_reduce_interp", "route": "cuda",
                      "source": "tpu_olap_torch/csrc/fused_reduce.cu",
                      "replaces": "tpu_olap/kernels/pallas_reduce.py:536",
-                     "launches": launches, "max_abs_err": max_err,
-                     "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms
-                     else "operations",
-                     "library_ms": lib_ms, "at": name})
+                     "launches": interp_launches, "ms": interp_ms,
+                     "on_main_path": False, **common})
 
     resident = eng.runner.device_bytes()
     print(f"[5 memory] resident device bytes {resident}; "

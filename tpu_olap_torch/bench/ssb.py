@@ -364,3 +364,48 @@ QUERIES = {
         ORDER BY d_year, s_city, p_brand1
     """,
 }
+
+# Each query with other literals of the same kinds (years, ranges,
+# regions, nations, cities, brands): what a dashboard sends when a user
+# moves a filter. Each literal names a value present in the generated
+# tables at every scale (a value absent from a dimension changes the
+# group space, and so the plan). The plans share their row programs'
+# structure with QUERIES, so they share one compiled kernel each.
+_OTHER_LITERALS = {
+    "q1.1": (("1993", "1994"), ("BETWEEN 1 AND 3", "BETWEEN 2 AND 4"),
+             ("< 25", "< 30")),
+    "q1.2": (("199401", "199502"), ("BETWEEN 4 AND 6", "BETWEEN 3 AND 5"),
+             ("BETWEEN 26 AND 35", "BETWEEN 21 AND 30")),
+    "q1.3": (("= 6 ", "= 7 "), ("1994", "1995"),
+             ("BETWEEN 5 AND 7", "BETWEEN 4 AND 6"),
+             ("BETWEEN 26 AND 35", "BETWEEN 25 AND 34")),
+    "q2.1": (("MFGR#12", "MFGR#13"), ("AMERICA", "ASIA")),
+    "q2.2": (("MFGR#2221", "MFGR#2231"), ("MFGR#2228", "MFGR#2238"),
+             ("ASIA", "EUROPE")),
+    "q2.3": (("MFGR#2239", "MFGR#2240"), ("EUROPE", "ASIA")),
+    "q3.1": (("ASIA", "AMERICA"), ("1992", "1993"), ("1997", "1996")),
+    "q3.2": (("UNITED STATES", "CHINA"), ("1992", "1993"),
+             ("1997", "1996")),
+    "q3.3": (("UNITED KI1", "UNITED KI4"), ("UNITED KI5", "UNITED KI8"),
+             ("1992", "1993"), ("1997", "1996")),
+    "q3.4": (("UNITED KI1", "UNITED KI4"), ("UNITED KI5", "UNITED KI8"),
+             ("Dec1997", "Nov1996")),
+    "q4.1": (("AMERICA", "EUROPE"), ("'MFGR#1'", "'MFGR#3'"),
+             ("'MFGR#2'", "'MFGR#4'")),
+    "q4.2": (("AMERICA", "EUROPE"), ("1997", "1995"), ("1998", "1996"),
+             ("'MFGR#1'", "'MFGR#3'"), ("'MFGR#2'", "'MFGR#4'")),
+    "q4.3": (("AMERICA", "ASIA"), ("UNITED STATES", "CHINA"),
+             ("1997", "1995"), ("1998", "1996"), ("MFGR#14", "MFGR#23")),
+}
+
+
+def _with_literals(text: str, subs) -> str:
+    for old, new in subs:
+        if old not in text:
+            raise ValueError(f"{old!r} is not in the query")
+        text = text.replace(old, new)
+    return text
+
+
+QUERIES_OTHER_LITERALS = {name: _with_literals(QUERIES[name], subs)
+                          for name, subs in _OTHER_LITERALS.items()}

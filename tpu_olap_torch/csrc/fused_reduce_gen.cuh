@@ -1,0 +1,189 @@
+// Fused filter -> group key -> grouped reduce for Hopper (sm_90a): the
+// kernel template into which kernels/rowgen.py splices one plan's row
+// function, compiled per plan with NVRTC (kernels/cuda_build.py).
+//
+// Replaces: the TPU kernel B1, tpu_olap/kernels/pallas_reduce.py::
+// build_kernel (pl.pallas_call in fn). Like B1's body, one pass over the
+// rows ANDs the validity, segment, interval and filter masks, evaluates
+// the integer virtual columns, computes the dimension ids and the
+// mixed-radix group key, and reduces per group (counts, exact int64
+// sums, int32 minimums; a max rides negated). B1 is traced and compiled
+// by JAX once per query; this kernel is generated and compiled once per
+// program structure, so nothing is looked up per row: the row function
+// is straight-line code with its widths, slot types and table offsets as
+// literals, and reads the query's literals (immediates, short IN lists)
+// as kernel constants from the parameter block, so queries that differ
+// only in literals share one compiled kernel (the interpreter,
+// csrc/fused_reduce.cu, stays only as the A/B baseline).
+//
+// What bounds it on this card: bytes read, then atomics. Every row of a
+// kept segment reads its valid byte and the streams of the mask's cone;
+// a row that passes reads the streams its key and values need and
+// updates the group table. For SSB q2.1 at SF1 that is ~19 MB: ~6 us at
+// 3.35 TB/s. PERF.md keeps the measured times (chip_smoke.py).
+//
+// What the design does about it:
+//  - Segment-aligned tiles: a block walks tiles of kThreads x 16 rows
+//    that lie inside one segment and reads the segment's keep flag once
+//    per tile, so a pruned tile reads nothing.
+//  - Each thread takes 16 consecutive rows: their valid bytes as one
+//    16-byte load, and each stream of the mask's cone as 16-byte loads
+//    (ld.global.nc.v4); streams outside the cone are read as scalars
+//    only for rows that pass. A launch whose segment length or pointers
+//    do not allow aligned vectors takes scalar loads throughout.
+//  - The reduce: a block-private group table in dynamic shared memory
+//    when it fits 200 KB: value sums as 64-bit atomics (two's-complement
+//    wrap gives signed sums exactly), counts as 32-bit atomics (a block
+//    sees fewer than 2^32 rows; the wrapper checks), minimums as 32-bit
+//    atomicMin; flushed with one global atomic per nonzero slot. With
+//    one group (K = 1) each thread accumulates in registers and a warp
+//    reduces with shuffles before one shared atomic per column. Past
+//    200 KB the rows update the int64 / int32 outputs with global
+//    atomics directly.
+//  - The wrapper launches only as many blocks as the occupancy
+//    calculator allows for this kernel at its shared-memory size.
+//
+// No header is included: NVRTC compiles this with its builtins only.
+
+namespace rowgen {
+
+constexpr int kThreads = 512;          // rowgen.THREADS
+constexpr int kRowsPerThread = 16;     // rowgen.ROWS_PER_THREAD
+constexpr long long kTile = (long long)kThreads * kRowsPerThread;
+constexpr int kMaxSlots = 32;          // rowprog.MAX_SLOTS
+constexpr int kMaxConsts = 128;        // rowgen.MAX_CONSTS
+
+struct __align__(16) V16 {
+  unsigned x, y, z, w;
+};
+
+// one 16-byte read-only load (the address is 16-byte aligned)
+__device__ __forceinline__ V16 ldg16(const void* p) {
+  V16 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+template <int N>
+__device__ __forceinline__ void vload(const void* base, long long byte_off,
+                                      V16 (&out)[N]) {
+  const char* p = static_cast<const char*>(base) + byte_off;
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = ldg16(p + 16 * j);
+}
+
+// 32-bit word k of staged vectors (k is a constant once unrolled)
+__device__ __forceinline__ unsigned word(const V16* v, int k) {
+  const V16 q = v[k >> 2];
+  const int s = k & 3;
+  return s == 0 ? q.x : s == 1 ? q.y : s == 2 ? q.z : q.w;
+}
+
+// row r of 16 staged rows of each element type (little-endian)
+__device__ __forceinline__ int lane_i8(const V16* v, int r) {
+  return (int)(signed char)(word(v, r >> 2) >> (8 * (r & 3)));
+}
+__device__ __forceinline__ int lane_b8(const V16* v, int r) {
+  return ((word(v, r >> 2) >> (8 * (r & 3))) & 0xffu) != 0;
+}
+__device__ __forceinline__ int lane_i16(const V16* v, int r) {
+  return (int)(short)(word(v, r >> 1) >> (16 * (r & 1)));
+}
+__device__ __forceinline__ int lane_i32(const V16* v, int r) {
+  return (int)word(v, r);
+}
+__device__ __forceinline__ long long lane_i64(const V16* v, int r) {
+  return (long long)(((unsigned long long)word(v, 2 * r + 1) << 32) |
+                     word(v, 2 * r));
+}
+
+__device__ __forceinline__ int min(int a, int b) { return a < b ? a : b; }
+
+}  // namespace rowgen
+
+//@@ROWGEN_PLAN@@
+
+namespace rowgen {
+
+// mirrored by rowgen.Params
+struct Params {
+  const void* slot[kMaxSlots];
+  const unsigned char* valid;     // [S, R] row validity
+  const unsigned char* seg_mask;  // [S] segments kept by pruning
+  const long long* data;          // the program's tables
+  unsigned long long* sums;       // [K, kSum] int64
+  int* mins;                      // [K, kMin] int32
+  long long seg_rows;             // R
+  long long tiles_per_seg;        // ceil(R / kTile)
+  long long n_tiles;              // S * tiles_per_seg
+  long long consts[kMaxConsts];   // rowgen.constants: the query's literals
+  int vec;                        // 16-byte loads allowed
+};
+
+}  // namespace rowgen
+
+extern "C" __global__ void __launch_bounds__(rowgen::kThreads)
+fused_reduce_gen(const __grid_constant__ rowgen::Params p) {
+  using namespace rowgen;
+  using namespace rowgen_plan;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* t64 = reinterpret_cast<unsigned long long*>(smem);
+  unsigned* t32 = reinterpret_cast<unsigned*>(t64 + kGroups * kN64);
+  int* tmin = reinterpret_cast<int*>(t32 + kGroups * kN32);
+  if constexpr (kShared) {
+    for (long long j = threadIdx.x; j < kGroups * kN64; j += kThreads)
+      t64[j] = 0ull;
+    for (long long j = threadIdx.x; j < kGroups * kN32; j += kThreads)
+      t32[j] = 0u;
+    for (long long j = threadIdx.x; j < kGroups * kNMin; j += kThreads)
+      tmin[j] = 2147483647;
+    __syncthreads();
+  }
+  Acc acc;
+  acc_init(acc);
+
+  for (long long t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
+    const long long seg = t / p.tiles_per_seg;
+    if (!p.seg_mask[seg]) continue;  // a pruned tile reads nothing more
+    const long long seg_end = (seg + 1) * p.seg_rows;
+    const long long i0 = seg * p.seg_rows +
+                         (t - seg * p.tiles_per_seg) * kTile +
+                         (long long)threadIdx.x * kRowsPerThread;
+    if (i0 >= seg_end) continue;
+    RowOut o;
+    if (p.vec && i0 + kRowsPerThread <= seg_end) {
+      V16 vb[1];
+      vb[0] = ldg16(p.valid + i0);
+      if ((vb[0].x | vb[0].y | vb[0].z | vb[0].w) == 0u) continue;
+      Cone c;
+      cone_load(p.slot, i0, c);
+#pragma unroll
+      for (int r = 0; r < kRowsPerThread; ++r) {
+        if (!lane_b8(vb, r)) continue;
+        if (!row_vec(p.slot, p.data, p.consts, i0 + r, c, r, o)) continue;
+        if constexpr (kOneGroup) acc_take(acc, o);
+        else if constexpr (kShared) take_shared(o, t64, t32, tmin);
+        else take_global(o, p.sums, p.mins);
+      }
+    } else {
+      for (int r = 0; r < kRowsPerThread; ++r) {
+        const long long i = i0 + r;
+        if (i >= seg_end) break;
+        if (!p.valid[i]) continue;
+        if (!row_scalar(p.slot, p.data, p.consts, i, o)) continue;
+        if constexpr (kOneGroup) acc_take(acc, o);
+        else if constexpr (kShared) take_shared(o, t64, t32, tmin);
+        else take_global(o, p.sums, p.mins);
+      }
+    }
+  }
+
+  if constexpr (kShared) {
+    if constexpr (kOneGroup) acc_spill(acc, t64, t32, tmin);
+    __syncthreads();
+    for (long long k = threadIdx.x; k < kGroups; k += kThreads)
+      flush(k, t64, t32, tmin, p.sums, p.mins);
+  }
+}

@@ -433,7 +433,7 @@ def _maybe_use_fused(plan, table, config):
     if reason is not None:
         plan.fused_reason = reason
         return
-    plan.kernel = fused_reduce.build_kernel(plan, table)
+    plan.kernel = fused_reduce.build_kernel(plan, table, config.device)
     plan.fused_reason = None
 
 

@@ -7,18 +7,27 @@ interval and filter masks, evaluates int32 virtual columns, builds the
 mixed-radix group key and reduces per group (`_rows`, counts, exact
 integer sums, and min/max with a non-null count).
 
-The CUDA kernel `csrc/fused_reduce.cu` (built for sm_90a with nvcc,
-loaded with ctypes) does the same in one pass. The query-specific part —
-filters, virtual columns, interval mask, dimension ids, key — is the
-plan's row front half (`PhysicalPlan.front_half`, the same closures the
-generic reduce runs), traced once per plan into a row program
-(kernels.rowprog) that the kernel interprets per row. The kernel then
+The query-specific part — filters, virtual columns, interval mask,
+dimension ids, key — is the plan's row front half
+(`PhysicalPlan.front_half`, the same closures the generic reduce runs),
+traced once per plan into a row program (kernels.rowprog). When the plan
+is lowered for a card, kernels.rowgen writes that program out as
+straight-line CUDA, splices it into the kernel template
+`csrc/fused_reduce_gen.cuh`, and NVRTC compiles it for sm_90a
+(kernels.cuda_build; cached on the program, and in the process and on
+disk by the source's hash). The source holds none of the query's
+literals, which reach the kernel as launch constants, so plans that
+differ only in literals share one compiled kernel. The kernel then
 reduces the rows whose mask is set into per-block group tables in shared
-memory with 64-bit integer atomics, flushed to global memory with
-atomics; past 200 KB of table the same kernel, templated, updates global
-memory directly. Like B1, it reads the resident id streams that are
-precomputed once per table (remap and timeFormat dimension ids, bucket
-ids, columnComparison translations) instead of recomputing them.
+memory, flushed to global memory with atomics; past 200 KB of table it
+updates global memory directly. Like B1, it reads the resident id
+streams that are precomputed once per table (remap and timeFormat
+dimension ids, bucket ids, columnComparison translations) instead of
+recomputing them.
+
+`csrc/fused_reduce.cu` is the first version of the kernel: one nvcc
+build that interprets any row program per row. It stays only as the A/B
+baseline (`fused_reduce_interp`); the main path never launches it.
 
 B1's byte planes, bf16 one-hot matmul, chunked int32 accumulators, f64
 half-sum recombination, bias shift and lane factorization exist only
@@ -27,11 +36,13 @@ ported: the card has native int64 atomics, so sums are exact by
 construction (two's-complement wrap of unsigned 64-bit adds, exact while
 rows × max|value| < 2^63 — the one overflow rule `eligible()` adds).
 
-`fused_reduce` is the wrapper: on CUDA tensors it launches the kernel or
-raises; on CPU tensors it runs `fused_reduce_ref`, the plain torch
-version (the program through `rowprog.evaluate`, then `index_add_` /
+`fused_reduce` is the wrapper: on CUDA tensors it launches the plan's
+generated kernel or raises (a failed compile or launch is never caught);
+on CPU tensors it runs `fused_reduce_ref`, the plain torch version (the
+program through `rowprog.evaluate`, then `index_add_` /
 `scatter_reduce_` in int64 over the selected rows). `launches` counts
-kernel launches.
+launches of the generated kernel, `interp_launches` those of the
+interpreter.
 """
 
 from __future__ import annotations
@@ -43,17 +54,17 @@ import torch
 
 from tpu_olap_torch.executor.dataset import has_nulls, resident_dtype
 from tpu_olap_torch.ir.expr import BinOp, Col, Lit
-from tpu_olap_torch.kernels import rowprog
+from tpu_olap_torch.kernels import rowgen, rowprog
 from tpu_olap_torch.kernels.groupby import torch_dtype
 from tpu_olap_torch.kernels.rowprog import RowProgramError
 from tpu_olap_torch.segments.segment import ColumnType
 
 MAX_VALUE = (1 << 31) - 1           # min/max inputs must fit int32
 INT64_LIMIT = 1 << 63               # sums accumulate exactly below this
-SMEM_TABLE_BYTES = 200 * 1024       # per-block group table in shared mem
 GROUP_CAP = 65536                   # the JAX package's factorized cap
 
-launches = 0                        # CUDA kernel launches (not ref runs)
+launches = 0                        # generated-kernel launches
+interp_launches = 0                 # interpreter launches (A/B baseline)
 
 
 def expr_int_bounds(expr, col_bounds):
@@ -221,16 +232,22 @@ def program(plan, table) -> rowprog.RowProgram:
     return prog
 
 
-def build_kernel(plan, table):
+def build_kernel(plan, table, device):
     """The fused replacement for lowering's generic agg kernel closure.
 
     Same contract: fn(env, valid, seg_mask, consts) -> partial dict with
     "_rows" plus one [K] tensor per aggregation (and "_nn_<name>" int32
     non-null counts for min/max). Empty min/max groups carry the
-    identity (±(2^31 - 1)); finalize renders them NULL via "_nn_"."""
+    identity (±(2^31 - 1)); finalize renders them NULL via "_nn_".
+
+    On a CUDA device the plan's kernel is generated and compiled here,
+    at lowering (kept on plan._fused_program), so compile time falls in
+    lower_ms and the first run only."""
     prog = program(plan, table)
     reads = plan._fused_reads
     K = plan.total_groups
+    if torch.device(device).type == "cuda":
+        compiled(prog, K, device)
 
     def fn(env, valid, seg_mask, consts):
         inputs = [None if kind == "base" else env[kind + "s"][name]
@@ -294,7 +311,8 @@ def fused_reduce(prog, inputs, valid, seg_mask, K):
     is the program's key, in [0, K). Returns (sums int64 [K, n_sum],
     mins int32 [K, C - n_sum]); an empty group's minimum is 2^31 - 1.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the plan's
+    generated kernel (compiled on first use if lowering did not).
     """
     _check(prog, inputs, valid, seg_mask, K)
     if valid.device.type == "cpu":
@@ -302,6 +320,16 @@ def fused_reduce(prog, inputs, valid, seg_mask, K):
     if valid.device.type != "cuda":
         raise ValueError(f"fused_reduce runs on cuda or cpu, not "
                          f"{valid.device}")
+    return _launch_gen(prog, inputs, valid, seg_mask, K)
+
+
+def fused_reduce_interp(prog, inputs, valid, seg_mask, K):
+    """The same function through the interpreter kernel
+    (csrc/fused_reduce.cu): CUDA tensors only. The A/B baseline of the
+    generated kernel; the main path never calls it."""
+    _check(prog, inputs, valid, seg_mask, K)
+    if valid.device.type != "cuda":
+        raise ValueError("the interpreter kernel runs on cuda tensors only")
     return _launch(prog, inputs, valid, seg_mask, K)
 
 
@@ -351,7 +379,7 @@ def _library():
 
 
 def _launch(prog, inputs, valid, seg_mask, K):
-    global launches
+    global interp_launches
     dev = valid.device
     n_sum, C = prog.n_sum, prog.n_cols
     sums = torch.zeros((K, n_sum), dtype=torch.int64, device=dev)
@@ -383,5 +411,66 @@ def _launch(prog, inputs, valid, seg_mask, K):
         raise RuntimeError(
             f"fused_reduce kernel launch failed: CUDA error {err} "
             f"({lib.fused_reduce_error_string(err).decode()})")
+    interp_launches += 1
+    return sums, mins
+
+
+# ---------------------------------------------------------------------------
+# The generated kernel
+
+
+def compiled(prog, K, device):
+    """The plan's generated kernel on `device`: source from
+    kernels.rowgen, compiled by NVRTC and loaded (kernels.cuda_build,
+    which shares one kernel among programs of one structure), memoized
+    on the program. Raises if it does not compile or load."""
+    from tpu_olap_torch.kernels import cuda_build
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = ("gen", K, index)
+    kern = prog._device.get(key)
+    if kern is None:
+        kern = prog._device[key] = cuda_build.nvrtc_kernel(
+            rowgen.kernel_source(prog, K), rowgen.KERNEL,
+            rowgen.THREADS, rowgen.table_bytes(prog, K), index)
+    return kern
+
+
+def _launch_gen(prog, inputs, valid, seg_mask, K):
+    global launches
+    dev = valid.device
+    n_sum, C = prog.n_sum, prog.n_cols
+    sums = torch.zeros((K, n_sum), dtype=torch.int64, device=dev)
+    mins = torch.full((K, C - n_sum), MAX_VALUE, dtype=torch.int32,
+                      device=dev)
+    if valid.numel() == 0:
+        return sums, mins
+    kern = compiled(prog, K, dev)
+    _, data = prog.on(dev)
+    S, R = valid.shape
+    tile = rowgen.THREADS * rowgen.ROWS_PER_THREAD
+    tiles_per_seg = -(-R // tile)
+    n_tiles = S * tiles_per_seg
+    grid = min(kern.max_blocks, n_tiles)
+    # the shared table counts in 32 bits: no block may see 2^32 rows
+    if -(-n_tiles // grid) * tile >= 1 << 32:
+        raise ValueError(f"{valid.numel()} rows: a block would see 2^32 "
+                         "rows or more")
+    p = rowgen.Params()
+    for i, t in enumerate(inputs):
+        p.slot[i] = 0 if t is None else t.data_ptr()
+    cone = [p.slot[s] for s in rowgen.cone_slots(prog)]
+    p.vec = int(R % rowgen.ROWS_PER_THREAD == 0 and all(
+        a % 16 == 0 for a in cone + [valid.data_ptr()]))
+    p.valid, p.seg_mask = valid.data_ptr(), seg_mask.data_ptr()
+    p.data, p.sums, p.mins = data.data_ptr(), sums.data_ptr(), \
+        mins.data_ptr()
+    p.seg_rows, p.tiles_per_seg, p.n_tiles = R, tiles_per_seg, n_tiles
+    values = prog._device.get("consts")
+    if values is None:
+        values = prog._device["consts"] = rowgen.constants(prog)
+    p.consts[:len(values)] = values
+    kern.launch(grid, p, torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     return sums, mins
