@@ -29,6 +29,8 @@ Phases, each printing its own line; any failure exits nonzero:
      launch counts are read. The queries with other literals must agree
      with the generic reduce too, and their launches are replayed the
      same way;
+     Every query must take the packed route (finalize, compaction and
+     packing on the card) with one device-to-host copy;
   5. timings, each beside the card's name and power limit: per-query
      p50s of both modes and each query's first (compile-included) run;
      an A/B in turns (interpreter, generated, generated, interpreter) of
@@ -38,7 +40,20 @@ Phases, each printing its own line; any failure exits nonzero:
      a per-query time breakdown. Kernel times are taken twice: with the
      inputs warm in L2 from the launch before, and cold (L2 overwritten
      before each launch, the overwrite not counted); the JSON line
-     carries the cold times.
+     carries the cold times;
+  6. the packed path: the 13 queries once more under
+     torch.cuda.set_sync_debug_mode("error"), lifted only around the one
+     device-to-host copy, so any host sync before it fails; then each
+     query's packed and unpacked p50, in turns in one call;
+  7. the distinct-count queries x1-x4 (ssb.DISTINCT_QUERIES: dense HLL
+     and theta, packed; a theta intersection, unpacked; a four-dimension
+     GROUP BY past the dense budget, sparse): first run, p50, route,
+     fused_reason, sparse re-runs, host copies and peak device memory
+     per query; x4's top 100 and x3 against pandas exactly, x1 and x2
+     within the harness's approximate band of pandas nunique; the HLL
+     registers, theta tables and sparse partials made on the card equal
+     to those the same torch functions make from the same rows on CPU
+     tensors; device time by kernel under torch.profiler.
 The second-to-last lines are the kernel table as JSON and the card's
 `nvidia-smi` name and power limit; the last line is the result JSON.
 """
@@ -126,7 +141,7 @@ def device_ms(fn, iters: int, kernel: str = "", between=None):
             torch.cuda.synchronize()
     except RuntimeError:  # CUPTI unavailable: fall back to events
         return None
-    total = sum(e.self_device_time_total for e in prof.key_averages()
+    total = sum(e.self_device_time_total for e in device_events(prof)
                 if kernel in e.key)
     return total / iters / 1000 if total > 0 else None
 
@@ -138,6 +153,15 @@ def timed(fn, iters: int, kernel: str = "", between=None):
     if ms is not None:
         return ms, "profiler device time"
     return cuda_ms(fn, iters, between), "CUDA events"
+
+
+def device_events(prof):
+    """The profile's device activities (kernels, copies, fills) by name.
+    A CPU operator's entry carries the device time of the kernels it
+    launched too, so summing over every entry would count it twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
 
 
 def device_busy(eng, queries) -> str:
@@ -158,7 +182,7 @@ def device_busy(eng, queries) -> str:
                 wall = (time.perf_counter() - t) * 1000
         except RuntimeError as e:  # CUPTI unavailable: a reading, not a fault
             return f"device busy: not measured (profiler failed: {e})"
-        evs = prof.key_averages()
+        evs = device_events(prof)
         dev = sum(e.self_device_time_total for e in evs) / 1000
         fused = sum(e.self_device_time_total for e in evs
                     if GEN_KERNEL in e.key) / 1000
@@ -292,6 +316,203 @@ def plan_report(kern) -> str:
             f"{kern.local_bytes} B, shared table {kern.smem_bytes} B, "
             f"{kern.blocks_per_sm} blocks of {kern.threads} threads per SM "
             f"({kern.max_blocks} launched at most)")
+
+
+def packed_phase(eng, reps, tag):
+    """Phase 6: no host sync before the one copy of the packed route;
+    packed against unpacked p50s, in turns."""
+    import numpy as np
+    import torch
+    from tpu_olap_torch.bench import ssb
+    from tpu_olap_torch.executor import runner as runner_mod
+    eng.config.use_fused_reduce = "auto"
+    real = runner_mod.to_host
+
+    def copy_allowed(buf, metrics):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(buf, metrics)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    runner_mod.to_host = copy_allowed
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, q in ssb.QUERIES.items():
+            try:
+                eng.sql(q)
+            except RuntimeError as e:
+                fail(f"{name}: the packed route syncs with the host before "
+                     f"its copy: {e}")
+            m = eng.runner.last_metrics
+            if m["route"] != "packed" or m["host_copies"] != 1:
+                fail(f"{name} under sync debug: route {m['route']}, "
+                     f"{m['host_copies']} copies")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        runner_mod.to_host = real
+    print("[6 packed] 13/13 queries ran the packed route under "
+          "torch.cuda.set_sync_debug_mode('error') (lifted only for the one "
+          "device-to-host copy): no host sync before the copy", flush=True)
+
+    def unpacked(plan, metrics):
+        return None  # _run_agg then takes the unpacked route
+
+    times = {}
+    for name, q in ssb.QUERIES.items():
+        ts = {"packed": [], "unpacked": []}
+        for route in ("packed", "unpacked", "unpacked", "packed") * reps:
+            if route == "unpacked":
+                eng.runner._run_packed = unpacked
+            t = time.perf_counter()
+            eng.sql(q)
+            ms = (time.perf_counter() - t) * 1000
+            eng.runner.__dict__.pop("_run_packed", None)
+            if eng.runner.last_metrics["route"] != route:
+                fail(f"{name} took {eng.runner.last_metrics['route']}, "
+                     f"not {route}")
+            ts[route].append(ms)
+        times[name] = {r: float(np.median(v)) for r, v in ts.items()}
+        print(f"[6 packed] {name} p50 packed {times[name]['packed']:.3f} ms |"
+              f" unpacked {times[name]['unpacked']:.3f} ms ({2 * reps} runs "
+              f"each, in turns) {tag}", flush=True)
+    tot = {r: sum(t[r] for t in times.values()) for r in ("packed",
+                                                          "unpacked")}
+    print(f"[6 packed] sum of the 13 p50s: packed {tot['packed']:.3f} ms, "
+          f"unpacked {tot['unpacked']:.3f} ms {tag}", flush=True)
+
+
+def top_kernels(fn, n=6) -> str:
+    """The n kernels with the most device time in one fn() call, under
+    torch.profiler; "not measured" when it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        return f"not measured (profiler failed: {e})"
+    evs = [e for e in device_events(prof) if e.self_device_time_total > 0]
+    if not evs:
+        return "not measured (profiler saw no device time)"
+    evs.sort(key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in evs) / 1000
+    return f"device {total:.3f} ms in {len(evs)} kernels; " + "; ".join(
+        f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1000:.3f} ms"
+        for e in evs[:n])
+
+
+def distinct_phase(eng, d, reps, tag):
+    """Phase 7: x1-x4 on the card, checked against pandas and against the
+    same torch functions on CPU tensors."""
+    import numpy as np
+    import torch
+    from tpu_olap_torch.bench import ssb
+    from tpu_olap_torch.bench.parity import assert_frame_parity
+    routes = {"x1": "packed", "x2": "packed", "x3": "unpacked",
+              "x4": "sparse"}
+    got = {}
+    for name, q in ssb.DISTINCT_QUERIES.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        got[name] = eng.sql(q)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t) * 1000
+        m = dict(eng.runner.last_metrics)
+        peak = torch.cuda.max_memory_allocated()
+        if m["route"] != routes[name]:
+            fail(f"{name} took the {m['route']} route")
+        if m["route"] == "sparse" and bool(m["sparse_reruns"]) != \
+                (m["result_groups"] > eng.config.sparse_group_cap):
+            fail(f"{name}: {m['result_groups']} groups against a first cap "
+                 f"of {eng.config.sparse_group_cap}, re-runs at "
+                 f"{m['sparse_reruns']}")
+        ts, unpacked = [], []
+        for _ in range(reps):
+            t = time.perf_counter()
+            eng.sql(q)
+            ts.append((time.perf_counter() - t) * 1000)
+            if m["route"] == "packed":
+                # the same query unpacked: its sketch state crosses
+                eng.runner._run_packed = lambda plan, metrics: None
+                t = time.perf_counter()
+                eng.sql(q)
+                unpacked.append((time.perf_counter() - t) * 1000)
+                del eng.runner._run_packed
+        if unpacked:
+            print(f"[7 distinct] {name} p50 in turns: packed "
+                  f"{float(np.median(ts)):.3f} ms, unpacked "
+                  f"{float(np.median(unpacked)):.3f} ms {tag}", flush=True)
+        print(f"[7 distinct] {name}: {len(got[name])} rows, route "
+              f"{m['route']}, fused_reason {m.get('fused_reason')!r}, "
+              f"groups {m.get('result_groups')}, sparse re-runs at caps "
+              f"{m.get('sparse_reruns', [])}, host copies {m['host_copies']}"
+              f" | first run {first:.1f} ms, p50 {float(np.median(ts)):.3f} "
+              f"ms (later runs' host copies "
+              f"{eng.runner.last_metrics['host_copies']}) | "
+              f"torch.cuda.max_memory_allocated {peak} {tag}", flush=True)
+    # x3 and x4 against pandas exactly, x1 and x2 within the approx band
+    for _, r in got["x3"].iterrows():
+        sub = d[d.c_region == r["c_region"]]
+        want = len(set(sub[sub.d_year == 1997].lo_custkey)
+                   & set(sub[sub.d_year == 1998].lo_custkey))
+        if int(r["retained"]) != want:
+            fail(f"x3 {r['c_region']}: {r['retained']} != pandas {want}")
+    m = (d.c_region == "AMERICA") & (d.s_region == "AMERICA")
+    ref = (d[m].groupby(["d_year", "c_city", "s_city", "p_brand1"])
+           .agg(revenue=("lo_revenue", "sum"),
+                orders=("lo_revenue", "size"))
+           .reset_index().sort_values("revenue", ascending=False).head(100))
+    assert_frame_parity(got["x4"].astype({"d_year": np.int64}),
+                        ref.astype({"d_year": np.int64}), ordered=True,
+                        label="x4/pandas")
+    for name, keys, col, src in (
+            ("x1", ["d_yearmonth", "s_nation"], "customers", "lo_custkey"),
+            ("x2", ["c_region", "d_year"], "parts", "lo_partkey")):
+        ref = d.groupby(keys)[src].nunique().reset_index(name=col)
+        g = got[name][keys + [col]].astype({k: ref[k].dtype for k in keys})
+        assert_frame_parity(g, ref, approx_cols=(col,),
+                            label=f"{name}/pandas")
+        err = np.abs(g.sort_values(keys)[col].to_numpy()
+                     / ref.sort_values(keys)[col].to_numpy() - 1)
+        print(f"[7 distinct] {name} vs pandas nunique: {len(ref)} groups, "
+              f"relative error max {err.max():.4f}, mean {err.mean():.4f}"
+              f" (band 0.12)", flush=True)
+    print("[7 distinct] x3 == pandas set intersections, x4 top 100 == "
+          "pandas groupby", flush=True)
+    # the sketch state and sparse partials: card against CPU tensors
+    runner = eng.runner
+    for name in ("x1", "x2", "x3", "x4"):
+        pq = eng.planner.plan(ssb.DISTINCT_QUERIES[name])
+        plan = runner._lower_cached(pq.query, pq.entry.segments)
+        env, valid, seg, consts = runner._dispatch_args(plan, {})
+        kern = plan.make_sparse_kernel(1 << 18) if plan.sparse \
+            else plan.kernel
+        on_card = {k: v.cpu() for k, v in kern(env, valid, seg,
+                                               consts).items()}
+        cpu_env = {g: {c: a.cpu() for c, a in env[g].items()}
+                   for g in ("cols", "nulls")}
+        on_cpu = kern(cpu_env, valid.cpu(), seg.cpu(),
+                      {k: v.cpu() for k, v in consts.items()})
+        names = sorted(on_cpu)
+        for k in names:
+            a, b = on_card[k], on_cpu[k]
+            if a.shape != b.shape or a.dtype != b.dtype or \
+                    not torch.equal(a, b):
+                fail(f"{name} {k}: the card's partial differs from the CPU's")
+        sk = [p.name for p in plan.agg_plans if p.kind in ("hll", "theta")]
+        print(f"[7 state] {name}: {len(names)} partial tables equal on the "
+              f"card and on CPU tensors exactly (sketch state: "
+              f"{[(k, tuple(on_card[k].shape)) for k in sk]})", flush=True)
+    # device time by kernel: the HLL scatter, the theta sort, the sparse
+    # sort
+    for name in ssb.DISTINCT_QUERIES:
+        q = ssb.DISTINCT_QUERIES[name]
+        print(f"[7 device] {name} under torch.profiler: "
+              f"{top_kernels(lambda: eng.sql(q))} {tag}", flush=True)
 
 
 def main():
@@ -436,7 +657,7 @@ def main():
     del case
 
     # -- 4. the main path --------------------------------------------------
-    per_query = {}
+    per_query, copies = {}, {}
     fr.fused_reduce = record
     fr.launches = 0
     fr.interp_launches = 0
@@ -446,9 +667,14 @@ def main():
             before = fr.launches
             frames[("auto", name)] = eng.sql(q)
             per_query[name] = fr.launches - before
-            if not eng.runner.last_metrics.get("fused"):
+            m = eng.runner.last_metrics
+            if not m.get("fused"):
                 fail(f"{name} did not take the fused reduce: "
-                     f"{eng.runner.last_metrics.get('fused_reason')}")
+                     f"{m.get('fused_reason')}")
+            copies[name] = m["host_copies"]
+            if m["route"] != "packed" or m["host_copies"] != 1:
+                fail(f"{name} took the {m['route']} route with "
+                     f"{m['host_copies']} device-to-host copies")
         torch.cuda.synchronize()
         launches, interp_launches = fr.launches, fr.interp_launches
     finally:
@@ -494,7 +720,8 @@ def main():
           f"q2.1 == pandas, the 13 with other literals == generic "
           f"torch reduce; generated-kernel launches per query "
           f"{json.dumps(per_query)} ({launches} in all), interpreter "
-          f"launches {interp_launches}", flush=True)
+          f"launches {interp_launches}; packed route, device-to-host "
+          f"copies per query {json.dumps(copies)}", flush=True)
     # replay each query's launch: generated kernel, interpreter and plain
     # version on the same inputs
     shapes = {}
@@ -627,6 +854,9 @@ def main():
                      "replaces": "tpu_olap/kernels/pallas_reduce.py:536",
                      "launches": interp_launches, "ms": interp_ms,
                      "on_main_path": False, **common})
+
+    packed_phase(eng, args.reps, tag)
+    distinct_phase(eng, denorm, args.reps, tag)
 
     resident = eng.runner.device_bytes()
     print(f"[5 memory] resident device bytes {resident}; "

@@ -32,3 +32,27 @@ def carry_into(engine, jax_engine, name, star_schema=None):
     engine.register_table(name, None, time_column=entry.time_column,
                           star_schema=star_schema, segments=seg)
     return seg
+
+
+def sql_literals(module, starts=("SELECT",), skip=("multichip", "exchange",
+                                                "skew")) -> list:
+    """(test name, string) of every string literal that starts with one
+    of `starts` inside the test functions of `module`, in source order —
+    the SQL a JAX-package test file runs, read from that file itself
+    rather than copied. Tests whose names hold a `skip` word (multi-chip
+    cases) are left out."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(module))
+    out = []
+    for fn in tree.body:
+        if not isinstance(fn, ast.FunctionDef) \
+                or not fn.name.startswith("test_") \
+                or any(w in fn.name for w in skip):
+            continue
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)\
+                    and node.value.lstrip().startswith(starts):
+                out.append((fn.name, node.value))
+    return out

@@ -409,3 +409,60 @@ def _with_literals(text: str, subs) -> str:
 
 QUERIES_OTHER_LITERALS = {name: _with_literals(QUERIES[name], subs)
                           for name, subs in _OTHER_LITERALS.items()}
+
+
+# --------------------------------------------------------------------------
+# Distinct counts and a wide drill-down over the same star: the dense HLL
+# and theta paths (finalized on the device and packed), a theta set
+# operation over raw tables (unpacked), and a GROUP BY whose group space
+# (year x customer city x supplier city x brand, about 20 M) is past the
+# dense budget (the sort-based sparse path).
+
+DISTINCT_QUERIES = {
+    # monthly active customers per supplier nation: HLL, dense, packed
+    "x1": """
+        SELECT d_yearmonth, s_nation, count(DISTINCT lo_custkey) AS customers,
+               sum(lo_revenue) AS revenue
+        FROM lineorder
+          JOIN date ON lo_orderdate = d_datekey
+          JOIN supplier ON lo_suppkey = s_suppkey
+        GROUP BY d_yearmonth, s_nation
+        ORDER BY d_yearmonth, s_nation
+    """,
+    # distinct parts per customer region and year: theta, dense, packed
+    "x2": """
+        SELECT c_region, d_year, theta_sketch(lo_partkey) AS parts
+        FROM lineorder
+          JOIN customer ON lo_custkey = c_custkey
+          JOIN date ON lo_orderdate = d_datekey
+        GROUP BY c_region, d_year
+        ORDER BY c_region, d_year
+    """,
+    # customers of 1997 still buying in 1998: a theta intersection over
+    # the raw tables, unpacked
+    "x3": """
+        SELECT c_region, theta_sketch_estimate(theta_sketch_intersect(
+                 theta_sketch(lo_custkey) FILTER (WHERE d_year = 1997),
+                 theta_sketch(lo_custkey) FILTER (WHERE d_year = 1998)))
+                 AS retained
+        FROM lineorder
+          JOIN customer ON lo_custkey = c_custkey
+          JOIN date ON lo_orderdate = d_datekey
+        GROUP BY c_region
+        ORDER BY c_region
+    """,
+    # the four-dimension drill-down: sparse group-by
+    "x4": """
+        SELECT d_year, c_city, s_city, p_brand1, sum(lo_revenue) AS revenue,
+               count(*) AS orders
+        FROM lineorder
+          JOIN date ON lo_orderdate = d_datekey
+          JOIN customer ON lo_custkey = c_custkey
+          JOIN supplier ON lo_suppkey = s_suppkey
+          JOIN part ON lo_partkey = p_partkey
+        WHERE c_region = 'AMERICA' AND s_region = 'AMERICA'
+        GROUP BY d_year, c_city, s_city, p_brand1
+        ORDER BY revenue DESC
+        LIMIT 100
+    """,
+}

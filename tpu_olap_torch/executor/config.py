@@ -27,18 +27,38 @@ class EngineConfig:
     long_dtype: object = np.int64
     double_dtype: object = np.float64
 
-    # largest dense group space lowering builds; past it the sort-based
-    # sparse group-by would take over, which is not ported yet
+    # largest dense group space lowering builds; past it a GroupBy takes
+    # the sort-based sparse group-by (kernels.sparse_groupby)
     dense_group_budget: int = 1 << 22
+    # theta sketch nominal-entries cap (k x groups x 8 B of device memory)
+    theta_k_cap: int = 1 << 14
     # largest dense id space of one numeric / timeFormat dimension
     numeric_dim_label_budget: int = 1 << 22
+
+    # sparse group-by: first compact-table size (grows to the next power
+    # of two on overflow) and the most PRESENT groups it serves; past it
+    # the query needs the fallback interpreter, which is not ported yet
+    sparse_group_cap: int = 1 << 15
+    sparse_group_budget: int = 1 << 21
+    # theta sketch width on the sparse path: [cap, k] tables stay modest
+    # (256 -> about 6% relative standard error)
+    sparse_theta_k_cap: int = 256
+    # most [groups x radix] elements of dense per-group sketch state
+    # (theta tables, HLL register files); past it a GroupBy takes the
+    # sparse path with the clamped sketch width, other shapes decline
+    dense_sketch_state_budget: int = 1 << 28
+
+    # packed results: most non-empty groups shipped back in the one
+    # compacted buffer of a dense aggregate query (executor.packing);
+    # past it the query re-runs unpacked (same answer, larger copy)
+    result_group_cap: int = 1 << 16
 
     # Timeseries: omit buckets with no rows (Druid skipEmptyBuckets)
     skip_empty_buckets: bool = False
     # planner: GROUP BY one dim + ORDER BY metric + LIMIT -> TopN
     allow_topn: bool = True
     topn_max_threshold: int = 100_000
-    # planner: COUNT(DISTINCT) -> approximate cardinality (not ported yet)
+    # planner: COUNT(DISTINCT) -> approximate cardinality (HLL)
     allow_count_distinct: bool = True
     # time zone of time-function extraction in SQL
     time_zone: str = "UTC"

@@ -3,9 +3,10 @@
 The analog of DruidStrategy's physical planning + Druid's per-query engine
 setup (SURVEY.md §4.2): the lowered kernel closure reads literals from a
 named ConstPool dict and runs as torch ops over the resident column
-stacks. Anything the dense device path can't express raises Unsupported*.
-This package lowers Timeseries / GroupBy / TopN over a dense group space;
-scan/select, search and the sparse group-by are not ported yet and raise.
+stacks. Anything the device path can't express raises Unsupported*.
+This package lowers Timeseries / GroupBy / TopN over a dense group space,
+and a GroupBy past the dense budgets to the sort-based sparse group-by;
+scan/select and search are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ from tpu_olap_torch.kernels.groupby import (UnsupportedAggregation,
                                             build_group_key,
                                             compile_aggregations,
                                             group_reduce)
+from tpu_olap_torch.kernels.hll import NUM_REGISTERS
+from tpu_olap_torch.kernels.sparse_groupby import (build_group_key64,
+                                                   sparse_group_reduce)
 from tpu_olap_torch.kernels.timebucket import compile_granularity
 from tpu_olap_torch.executor.dimplan import compile_dimension
 from tpu_olap_torch.segments.segment import ColumnType, TIME_COLUMN
@@ -37,6 +41,7 @@ class PhysicalPlan:
     kind: str                  # "agg"
     pool: ConstPool = None
     kernel: object = None      # fn(env, valid, seg_mask, consts) -> partials
+    #                            (None on the sparse path)
     dim_plans: list = field(default_factory=list)
     bucket_plan: object = None
     agg_plans: list = field(default_factory=list)
@@ -56,6 +61,9 @@ class PhysicalPlan:
     # fn(env, mask, consts) -> (key, mask, env): the row front half
     front_half: object = None
     fused_reason: str | None = "not attempted"  # None = fused reduce active
+    sparse: bool = False       # the sort-based sparse group-by serves it
+    # cap -> fn(env, valid, seg_mask, consts) -> compact sparse partials
+    make_sparse_kernel: object = None
 
 
 def lower(query, table, config) -> PhysicalPlan:
@@ -64,6 +72,25 @@ def lower(query, table, config) -> PhysicalPlan:
         return _lower_agg(query, table, config)
     raise UnsupportedAggregation(
         f"not yet ported: device lowering for {type(query).__name__}")
+
+
+def _sparse_reject_reason(query, total) -> str | None:
+    """None when the sort-based sparse path can serve this shape, else
+    why not (GroupBy only: the timeseries/topN assemblers index the
+    dense bucket space)."""
+    if not isinstance(query, GroupByQuerySpec):
+        return f"{query.query_type} has no sparse path"
+    if total >= (1 << 62):
+        return "the group space overflows the int64 sparse key"
+    return None
+
+
+def _radix(p) -> int:
+    """Per-group state width of an aggregation plan: the HLL register
+    file, the theta table, or 1 for a scalar accumulator."""
+    if p.kind == "hll":
+        return NUM_REGISTERS
+    return p.theta_k if p.kind == "theta" else 1
 
 
 def _time_range(query, table):
@@ -335,7 +362,8 @@ def _lower_agg(query, table, config) -> PhysicalPlan:
 
     agg_plans = compile_aggregations(
         query.aggregations, table, pool, vexprs,
-        long_dtype=config.long_dtype, double_dtype=config.double_dtype)
+        long_dtype=config.long_dtype, double_dtype=config.double_dtype,
+        theta_k_cap=config.theta_k_cap)
 
     filter_fn = (compile_filter(query.filter, table, pool, vexprs)
                  if query.filter is not None else None)
@@ -345,10 +373,34 @@ def _lower_agg(query, table, config) -> PhysicalPlan:
     total = 1
     for s in sizes:
         total *= s
-    if total > config.dense_group_budget:
-        raise UnsupportedAggregation(
-            f"group space {total} exceeds dense budget "
-            f"{config.dense_group_budget}; not yet ported: sparse group-by")
+    # sketch aggregations keep [groups x radix] state each: at large K
+    # their total dominates memory long before the group count passes the
+    # dense budget. Over the state budget a GroupBy takes the sparse path
+    # (clamped sketch width); shapes with no sparse path decline. One
+    # device: no mesh factor on the theta state.
+    state_radix = sum(_radix(p) for p in agg_plans if _radix(p) > 1)
+    sketch_over = (state_radix > 0 and total * state_radix
+                   > config.dense_sketch_state_budget)
+    sparse = total > config.dense_group_budget
+    if sketch_over and not sparse:
+        reject = _sparse_reject_reason(query, total)
+        if reject is not None:
+            raise UnsupportedAggregation(
+                f"per-group sketch state {total}×{state_radix} exceeds "
+                f"dense_sketch_state_budget "
+                f"{config.dense_sketch_state_budget} and {reject}")
+        sparse = True
+    if sparse:
+        reject = _sparse_reject_reason(query, total)
+        if reject is not None:
+            raise UnsupportedAggregation(
+                f"group space {total} exceeds dense budget "
+                f"{config.dense_group_budget} and {reject}")
+        # theta rides the sparse path with a clamped sketch width
+        import dataclasses
+        agg_plans = [dataclasses.replace(
+            p, theta_k=min(p.theta_k, config.sparse_theta_k_cap))
+            if p.kind == "theta" else p for p in agg_plans]
 
     pruned_segs = table.prune(
         intervals, _filter_numeric_bounds(query.filter, table, vexprs))
@@ -365,11 +417,12 @@ def _lower_agg(query, table, config) -> PhysicalPlan:
                                           vexprs, need_time)
     pruned = [s.meta.segment_id for s in pruned_segs]
 
-    def front_half(env, mask, consts):
-        """The row front half both reduces share: flat env {"cols",
+    def front_half(env, mask, consts, make_key=build_group_key):
+        """The row front half every reduce shares: flat env {"cols",
         "nulls"} and base mask (validity ∧ segment) -> (key, mask, env
-        with the virtual columns materialized). The generic reduce runs
-        it eagerly; the fused reduce traces it into its row program."""
+        with the virtual columns materialized). The generic and sparse
+        reduces run it eagerly (the sparse one with the int64 key); the
+        fused reduce traces it into its row program."""
         cols, nulls = dict(env["cols"]), dict(env["nulls"])
         materialize_virtuals(vexprs, cols, nulls)
         fenv = {"cols": cols, "nulls": nulls}
@@ -389,27 +442,45 @@ def _lower_agg(query, table, config) -> PhysicalPlan:
             ids.append(dp.ids(fenv, consts))
             radix.append(size)
         if ids:
-            key, _ = build_group_key(ids, radix)
+            key, _ = make_key(ids, radix)
         else:
             key = torch.zeros_like(mask, dtype=torch.int32)
         return key, mask, fenv
 
-    def kernel(env, valid, seg_mask, consts):
+    def flat_env(env, valid, seg_mask):
         flat = {"cols": {c: a.reshape(-1) for c, a in env["cols"].items()},
                 "nulls": {c: a.reshape(-1)
                           for c, a in env["nulls"].items()}}
-        base = (valid & seg_mask[:, None]).reshape(-1)
+        return flat, (valid & seg_mask[:, None]).reshape(-1)
+
+    def kernel(env, valid, seg_mask, consts):
+        flat, base = flat_env(env, valid, seg_mask)
         key, mask, fenv = front_half(flat, base, consts)
         return group_reduce(key, mask, fenv, agg_plans, total, consts)
 
+    def make_sparse_kernel(cap):
+        def sparse_kernel(env, valid, seg_mask, consts):
+            flat, base = flat_env(env, valid, seg_mask)
+            key, mask, fenv = front_half(flat, base, consts,
+                                         build_group_key64)
+            return sparse_group_reduce(key.to(torch.int64), mask, fenv,
+                                       agg_plans, cap, consts)
+        return sparse_kernel
+
     plan = PhysicalPlan(
-        query=query, table=table, kind="agg", pool=pool, kernel=kernel,
+        query=query, table=table, kind="agg", pool=pool,
+        kernel=None if sparse else kernel,
         dim_plans=dim_plans, bucket_plan=bucket_plan,
         agg_plans=agg_plans, sizes=sizes, total_groups=total,
         pruned_ids=pruned, t_min=t_min, t_max=t_max, empty=empty,
         columns=columns, null_cols=null_cols, virtual_exprs=vexprs,
-        filter_streams=_dedupe_streams(pool), front_half=front_half)
-    _maybe_use_fused(plan, table, config)
+        filter_streams=_dedupe_streams(pool), front_half=front_half,
+        sparse=sparse,
+        make_sparse_kernel=make_sparse_kernel if sparse else None)
+    if sparse:
+        plan.fused_reason = "sparse group-by"
+    else:
+        _maybe_use_fused(plan, table, config)
     return plan
 
 

@@ -2,12 +2,20 @@
 
 The analog of the reference's DruidRDD.compute + broker round-trip
 (SURVEY.md §4.2) collapsed into an in-process call: lower -> device
-dispatch over the resident column stacks -> one device-to-host copy of
-the partial aggregates -> host finalize and assembly.
+dispatch over the resident column stacks -> ONE device-to-host copy ->
+host finalize and assembly.
 
-This package runs the dense aggregate path (Timeseries / GroupBy / TopN)
-on one device. The packed single-fetch path, the sparse group-by, the
-caches, the batch coalescer, the stage graph, the mesh and the
+Three routes on one device, as in the JAX package:
+  - packed (every dense aggregate query): the kernel, then finalize,
+    compaction to the non-empty groups and packing on the device
+    (executor.packing), one buffer back; a result past
+    `result_group_cap` groups re-runs unpacked;
+  - unpacked: every partial table back in one copy — queries whose theta
+    set-op post-aggregations need the raw tables, and packed overflows;
+  - sparse (a GroupBy past the dense budgets): the sort-based sparse
+    group-by (kernels.sparse_groupby), re-run at the next power of two
+    while the groups overflow its cap, up to `sparse_group_budget`.
+The caches, the batch coalescer, the stage graph, the mesh and the
 scan/search/metadata query types are not ported yet.
 """
 
@@ -22,11 +30,15 @@ import torch
 from tpu_olap_torch.executor.config import EngineConfig
 from tpu_olap_torch.executor.dataset import DeviceDataset
 from tpu_olap_torch.executor.lowering import PhysicalPlan, lower
+from tpu_olap_torch.executor.packing import (build_packer, densify,
+                                             make_layout, unpack)
 from tpu_olap_torch.executor.results import (agg_specs_by_name, eval_having,
                                              eval_post_aggs, finalize_aggs,
-                                             iso, render_value)
+                                             iso, render_value,
+                                             theta_raw_fields)
 from tpu_olap_torch.ir.interval import ETERNITY
 from tpu_olap_torch.kernels.filtereval import _take
+from tpu_olap_torch.kernels.sparse_groupby import SENTINEL
 from tpu_olap_torch.ir.query import (GroupByQuerySpec, TimeseriesQuerySpec,
                                      TopNQuerySpec)
 from tpu_olap_torch.segments.segment import TIME_COLUMN
@@ -63,6 +75,9 @@ class QueryRunner:
         self.device = resolve_device(self.config.device)
         self._datasets: dict[str, DeviceDataset] = {}
         self._plan_cache: dict = {}
+        # last observed group count per query template and route: sizes
+        # the next run's packed / sparse cap
+        self._cap_hints: dict = {}
         self.last_metrics: dict = {}
 
     def execute(self, query, table) -> QueryResult:
@@ -146,7 +161,10 @@ class QueryRunner:
                     _take(consts[cname], ds.col(src)).to(torch.int32))
         valid = ds.valid()
         kept = plan.pruned_ids if not plan.empty else []
-        seg_mask = ds.segment_mask(kept)
+        # once per plan: a host-to-device copy per query would sync
+        seg_mask = getattr(plan, "_device_seg_mask", None)
+        if seg_mask is None:
+            seg_mask = plan._device_seg_mask = ds.segment_mask(kept)
         metrics["segments_total"] = len(table.segments)
         metrics["segments_scanned"] = len(kept)
         metrics["rows_scanned"] = int(sum(
@@ -178,9 +196,9 @@ class QueryRunner:
             return None
         return min(lo, n_segments - W), W
 
-    def _run_partials(self, plan: PhysicalPlan, metrics: dict) -> dict:
-        """Dispatch the plan's kernel and fetch its partial aggregates
-        with one device-to-host copy."""
+    def _dispatch_args(self, plan: PhysicalPlan, metrics: dict):
+        """(env, valid, seg_mask, consts) of the plan's kernel, cut to
+        the segment window when it saves enough."""
         t0 = time.perf_counter()
         env, valid, seg_mask, consts = self._prepare(plan, metrics)
         metrics["prepare_ms"] = (time.perf_counter() - t0) * 1000
@@ -192,14 +210,87 @@ class QueryRunner:
             env = {"cols": {c: a[sl] for c, a in env["cols"].items()},
                    "nulls": {c: a[sl] for c, a in env["nulls"].items()}}
             valid, seg_mask = valid[sl], seg_mask[sl]
+        return env, valid, seg_mask, consts
+
+    def _run_partials(self, plan: PhysicalPlan, metrics: dict) -> dict:
+        """Unpacked route: dispatch the plan's kernel and fetch every
+        partial table with one device-to-host copy."""
+        args = self._dispatch_args(plan, metrics)
         t0 = time.perf_counter()
-        out = plan.kernel(env, valid, seg_mask, consts)
-        out = _fetch(out)
+        out = _fetch(plan.kernel(*args), metrics)
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
         return out
 
+    def _cap_hint(self, plan: PhysicalPlan, route: str, first: int,
+                  limit: int) -> tuple:
+        """(hint key, first cap): the config's cap on a template's first
+        run, then twice the group count last seen (a power of two, at
+        least 64), never past `limit`."""
+        key = (plan.table.name, route, plan.sizes,
+               tuple((p.kind, p.name) for p in plan.agg_plans))
+        hint = self._cap_hints.get(key)
+        cap = min(limit, first) if hint is None else \
+            min(limit, max(64, _next_pow2(2 * hint)))
+        return key, cap
+
+    def _run_packed(self, plan: PhysicalPlan, metrics: dict):
+        """Packed route: the kernel plus device finalize/compact/pack, one
+        buffer back. The cap adapts per template, with a sized retry when
+        a run overflows its hint. Returns (idx, compact, layout), or None
+        when the groups exceed `result_group_cap` (the caller re-runs
+        unpacked)."""
+        args = self._dispatch_args(plan, metrics)
+        cap_limit = min(self.config.result_group_cap, plan.total_groups)
+        key, cap = self._cap_hint(plan, "packed", cap_limit, cap_limit)
+        t0 = time.perf_counter()
+        while True:
+            layout = make_layout(plan, self.config, cap)
+            buf = build_packer(plan.kernel, plan, layout)(*args)
+            count, idx, compact = unpack(to_host(buf, metrics), layout)
+            if count <= layout.cap:
+                break
+            if count > cap_limit:
+                metrics["result_groups"] = count
+                return None
+            cap = min(cap_limit, _next_pow2(count))
+        self._cap_hints[key] = count
+        metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
+        metrics["result_groups"] = count
+        metrics["result_cap"] = layout.cap
+        return idx, compact, layout
+
+    def _run_sparse(self, plan: PhysicalPlan, metrics: dict) -> dict:
+        """Sparse route: the sort-based group-by with an adaptive compact
+        table cap; each attempt is one copy back. Past
+        `sparse_group_budget` present groups the query needs the fallback
+        interpreter, which is not ported: FallbackNotPorted."""
+        args = self._dispatch_args(plan, metrics)
+        cap_limit = min(self.config.sparse_group_budget, plan.total_groups)
+        key, cap = self._cap_hint(plan, "sparse",
+                                  self.config.sparse_group_cap, cap_limit)
+        t0 = time.perf_counter()
+        reruns = []
+        while True:
+            out = _fetch(plan.make_sparse_kernel(cap)(*args), metrics)
+            count = int(out["_count"])
+            if count <= cap:
+                break
+            if count > cap_limit:
+                from tpu_olap_torch.planner.plan import FallbackNotPorted
+                raise FallbackNotPorted(
+                    f"{count} present groups exceed sparse budget "
+                    f"{cap_limit}; not yet ported: fallback interpreter")
+            reruns.append(cap)
+            cap = min(cap_limit, _next_pow2(count))
+        self._cap_hints[key] = count
+        metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
+        metrics["result_groups"] = count
+        metrics["result_cap"] = cap
+        metrics["sparse_reruns"] = reruns  # the caps that overflowed
+        return out
+
     def _run_agg(self, query, table) -> QueryResult:
-        metrics = self.last_metrics = {}
+        metrics = self.last_metrics = {"host_copies": 0}
         t0 = time.perf_counter()
         plan = self._lower_cached(query, table)
         metrics["lower_ms"] = (time.perf_counter() - t0) * 1000
@@ -207,9 +298,42 @@ class QueryRunner:
         if plan.fused_reason is not None:
             metrics["fused_reason"] = plan.fused_reason
         specs = agg_specs_by_name(query.aggregations)
-        partials = self._run_partials(plan, metrics)
-        t0 = time.perf_counter()
-        arrays = finalize_aggs(partials, plan.agg_plans, specs)
+        # theta set-op post-aggregations read RAW sketch tables on the
+        # host; the packed route finalizes sketches on the device
+        keep_raw = theta_raw_fields(query.post_aggregations)
+
+        if plan.sparse:
+            metrics["route"] = "sparse"
+            out = self._run_sparse(plan, metrics)
+            t0 = time.perf_counter()
+            arrays = finalize_aggs(out, plan.agg_plans, specs, keep_raw)
+            eval_post_aggs(arrays, query.post_aggregations)
+            names = self._out_names(query)
+            pm = out["_keys"] != SENTINEL  # empty slots fill the tail
+            present = out["_keys"][pm]
+            sub = {n: np.asarray(arrays[n])[pm] for n in names}
+            res = self._emit_groupby(query, plan, present, sub)
+            res.metrics = metrics
+            metrics["assemble_ms"] = (time.perf_counter() - t0) * 1000
+            return res
+
+        packed = None if keep_raw else self._run_packed(plan, metrics)
+        if packed is not None:
+            metrics["route"] = "packed"
+            idx, compact, layout = packed
+            t0 = time.perf_counter()
+            for p in plan.agg_plans:
+                if p.kind == "hll" and \
+                        getattr(specs.get(p.name), "round", True):
+                    compact[p.name] = np.round(compact[p.name])
+            arrays = densify(idx, compact, layout, plan.agg_plans)
+        else:
+            # theta set ops, or a packed overflow past result_group_cap
+            metrics["route"] = "unpacked"
+            partials = self._run_partials(plan, metrics)
+            t0 = time.perf_counter()
+            arrays = finalize_aggs(partials, plan.agg_plans, specs,
+                                   keep_raw)
         eval_post_aggs(arrays, query.post_aggregations)
         res = self._assemble_agg(query, plan, arrays)
         res.metrics = metrics
@@ -356,7 +480,14 @@ class QueryRunner:
         return QueryResult(query, rows, druid)
 
 
-def _fetch(out: dict) -> dict:
+def to_host(buf: torch.Tensor, metrics: dict) -> np.ndarray:
+    """The one device-to-host copy of a query route: a 1-D tensor to a
+    numpy array (counted in metrics["host_copies"])."""
+    metrics["host_copies"] = metrics.get("host_copies", 0) + 1
+    return buf.cpu().numpy()
+
+
+def _fetch(out: dict, metrics: dict) -> dict:
     """{name: device tensor} -> {name: numpy array} in ONE device-to-host
     copy: every tensor's bytes concatenate into one uint8 buffer."""
     names = list(out)
@@ -366,8 +497,8 @@ def _fetch(out: dict) -> dict:
     ts = [out[n].new_empty(out[n].shape).copy_(out[n]) for n in names]
     if not ts:
         return {}
-    buf = torch.cat([t.reshape(-1).view(torch.uint8) for t in ts]).cpu()
-    host = buf.numpy()
+    host = to_host(torch.cat([t.reshape(-1).view(torch.uint8) for t in ts]),
+                   metrics)
     res, off = {}, 0
     for n, t in zip(names, ts):
         nb = t.numel() * t.element_size()
