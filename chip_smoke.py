@@ -4,9 +4,9 @@
 
 Phases, each printing its own line; any failure exits nonzero:
   1. the card: name, power limit, torch and CUDA versions (no card: fail);
-  2. build: the interpreter kernel from tpu_olap_torch/csrc with nvcc (in
-     the background), NVRTC located, SSB at SF1 (6,000,000 lineorder
-     rows, seed 0) generated and registered, and each of the 13 queries
+  2. build: NVRTC located (no kernel needs nvcc), SSB at SF1 (6,000,000
+     lineorder rows, seed 0) generated and registered, and each of the 13
+     queries
      run once through Engine.sql: lowering generates and compiles the
      plan's kernel with NVRTC (the on-disk cubin cache is emptied
      first), so this run's latency includes the compile. Per plan: compile
@@ -15,32 +15,30 @@ Phases, each printing its own line; any failure exits nonzero:
      (ssb.QUERIES_OTHER_LITERALS): a new plan whose program has the
      same structure, so it must reuse the kernel (NVRTC compiles and
      first-run latency printed);
-  3. hold the generated kernel and the interpreter against the plain
-     torch version on the card on synthetic row programs at the main
-     path's row count, K from 1 to 65,536 (shared and global group
-     tables; each case compiles its own kernel; exact equality);
+  3. hold the generated kernel against the plain torch version on the
+     card on synthetic row programs at the main path's row count, K from
+     1 to 65,536 (shared and global group tables; each case compiles its
+     own kernel; exact equality);
   4. the main path: all 13 queries through Engine.sql with the fused
      kernel ("auto", counts set to 0 just before) and with the generic
      torch reduce ("never"); the frames must agree, two must agree with
      an independent pandas reference, and the generated kernel must
-     launch on every query and the interpreter on none. Every launch of
-     the main path is then replayed through the generated kernel, the
-     interpreter and the plain version (exact equality) — after the
-     launch counts are read. The queries with other literals must agree
-     with the generic reduce too, and their launches are replayed the
-     same way;
+     launch on every query. Every launch of the main path is then
+     replayed through the generated kernel and the plain version (exact
+     equality) — after the launch counts are read. The queries with
+     other literals must agree with the generic reduce too, and their
+     launches are replayed the same way;
      Every query must take the packed route (finalize, compaction and
      packing on the card) with one device-to-host copy;
   5. timings, each beside the card's name and power limit: per-query
      p50s of both modes and each query's first (compile-included) run;
-     an A/B in turns (interpreter, generated, generated, interpreter) of
-     device time at q1.1's, q2.1's, q2.2's, q3.1's and q4.3's inputs,
-     beside the bound, the plain version's time and one torch index_add_
-     call over the pre-selected rows (the yardstick of the reduce half);
-     a per-query time breakdown. Kernel times are taken twice: with the
-     inputs warm in L2 from the launch before, and cold (L2 overwritten
-     before each launch, the overwrite not counted); the JSON line
-     carries the cold times;
+     the generated kernel's device time at q1.1's, q2.1's, q2.2's,
+     q3.1's and q4.3's inputs, beside the bound, the plain version's
+     time and one torch index_add_ call over the pre-selected rows (the
+     yardstick of the reduce half); a per-query time breakdown. Kernel
+     times are taken twice: with the inputs warm in L2 from the launch
+     before, and cold (L2 overwritten before each launch, the overwrite
+     not counted); the JSON line carries the cold times;
   6. the packed path: the 13 queries once more under
      torch.cuda.set_sync_debug_mode("error"), lifted only around the one
      device-to-host copy, so any host sync before it fails; then each
@@ -53,7 +51,24 @@ Phases, each printing its own line; any failure exits nonzero:
      within the harness's approximate band of pandas nunique; the HLL
      registers, theta tables and sparse partials made on the card equal
      to those the same torch functions make from the same rows on CPU
-     tensors; device time by kernel under torch.profiler.
+     tensors; device time by kernel under torch.profiler;
+  8. the query types other than the aggregates on the same table:
+     three Scans through Engine.sql (q1.1's filter with LIMIT 100; one
+     month of __time, ORDER BY __time DESC LIMIT 50 OFFSET 1000, which
+     cuts the segment window; a selective filter with no LIMIT), three
+     chained select_page pages, three Searches (the SEARCH verb over
+     every dimension, one IN c_city, s_city with strlen order, one over
+     a numeric and a coded dimension), TimeBoundary, SegmentMetadata,
+     EXPLAIN DRUID REWRITE, and CLEAR DRUID CACHE followed by the first
+     scan again. The row-mask kernel must launch once on every scan and
+     search (counts set to 0 just before), each answer must equal the
+     same query on an Engine(device="cpu") over the same segments
+     exactly, the selective scan must equal pandas, scans, pages and
+     coded searches must take one device-to-host copy with no host sync
+     before it (set_sync_debug_mode("error")), and every mask launch is
+     replayed against the plain version (exact) after the counts are
+     read. Per query: first run, p50, route, copies and bytes; the mask
+     kernel's device time cold and warm against its bound.
 The second-to-last lines are the kernel table as JSON and the card's
 `nvidia-smi` name and power limit; the last line is the result JSON.
 """
@@ -64,7 +79,6 @@ import argparse
 import json
 import subprocess
 import sys
-import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
@@ -72,7 +86,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 # (H100 SXM boost clock) = 16.7e12 32-bit integer operations per second.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 GEN_KERNEL = "fused_reduce_gen"        # the generated kernel's name
-INTERP_KERNEL = "fused_reduce_kernel"  # the interpreter's
+MASK_KERNEL = "row_mask_gen"           # the row-mask kernel's
 AB_QUERIES = ("q1.1", "q2.1", "q2.2", "q3.1", "q4.3")
 
 
@@ -164,33 +178,34 @@ def device_events(prof):
             if e.device_type == DeviceType.CUDA]
 
 
-def device_busy(eng, queries) -> str:
+def device_busy(runs, kernel=GEN_KERNEL) -> str:
     """Device time per query under torch.profiler, against the profiled
-    wall clock: summed kernel time, the fused kernel's share, and the
-    idle share. "not measured" when the profiler records no device
-    time on this machine."""
+    wall clock: summed kernel time, the share of the kernels whose name
+    holds `kernel`, and the idle share. `runs`: {name: fn() that runs
+    the query}. "not measured" when the profiler records no device time
+    on this machine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     parts = []
-    for name, q in queries.items():
+    for name, run in runs.items():
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t = time.perf_counter()
-                eng.sql(q)
+                run()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t) * 1000
         except RuntimeError as e:  # CUPTI unavailable: a reading, not a fault
             return f"device busy: not measured (profiler failed: {e})"
         evs = device_events(prof)
         dev = sum(e.self_device_time_total for e in evs) / 1000
-        fused = sum(e.self_device_time_total for e in evs
-                    if GEN_KERNEL in e.key) / 1000
+        share = sum(e.self_device_time_total for e in evs
+                    if kernel in e.key) / 1000
         if dev <= 0:
             return "device busy: not measured (profiler saw no device time)"
         parts.append(f"{name} busy {dev:.3f} ms of {wall:.3f} ms "
-                     f"(idle {1 - dev / wall:.1%}, fused kernel "
-                     f"{fused:.3f} ms)")
+                     f"(idle {1 - dev / wall:.1%}, {kernel} "
+                     f"{share:.3f} ms)")
     return "device busy under torch.profiler: " + "; ".join(parts)
 
 
@@ -283,25 +298,22 @@ def kernel_bound(prog, inputs, valid, seg_mask, K, sums):
 
 
 def check_kernel(fr, case, label):
-    """Generated kernel and interpreter vs the plain version on one case;
-    fails on any difference. Returns (max error, generated outputs)."""
+    """Generated kernel vs the plain version on one case; fails on any
+    difference. Returns (max error, generated outputs)."""
     import torch
     got = fr.fused_reduce(*case)
-    interp = fr.fused_reduce_interp(*case)
     torch.cuda.synchronize()
     want = fr.fused_reduce_ref(*case)
     torch.cuda.synchronize()
-    errs = []
-    for which, out in (("generated", got), ("interpreter", interp)):
-        for g, w in zip(out, want):
-            if g.shape != w.shape or g.dtype != w.dtype:
-                fail(f"{which} kernel output {g.shape}/{g.dtype} vs plain "
-                     f"{w.shape}/{w.dtype} at {label}")
-        errs.append(max_abs_diff(out, want))
-        if errs[-1]:
-            fail(f"{which} kernel disagrees with the plain version at "
-                 f"{label}: max |kernel - plain| = {errs[-1]}")
-    return max(errs), got
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"generated kernel output {g.shape}/{g.dtype} vs plain "
+                 f"{w.shape}/{w.dtype} at {label}")
+    err = max_abs_diff(got, want)
+    if err:
+        fail(f"generated kernel disagrees with the plain version at "
+             f"{label}: max |kernel - plain| = {err}")
+    return err, got
 
 
 def plan_report(kern) -> str:
@@ -515,6 +527,307 @@ def distinct_phase(eng, d, reps, tag):
               f"{top_kernels(lambda: eng.sql(q))} {tag}", flush=True)
 
 
+# -- phase 8: scans, select pages, searches and metadata -------------------
+
+SCAN_A = ("SELECT lo_extendedprice, lo_discount, lo_quantity, d_year FROM "
+          "lineorder WHERE d_year = 1993 AND lo_discount BETWEEN 1 AND 3 "
+          "AND lo_quantity < 25 LIMIT 100")
+SCAN_B = ("SELECT __time, lo_orderkey, lo_revenue, c_city FROM lineorder "
+          "WHERE __time >= TIMESTAMP '1995-03-01' AND "
+          "__time < TIMESTAMP '1995-04-01' AND lo_quantity < 3 "
+          "ORDER BY __time DESC LIMIT 50 OFFSET 1000")
+SCAN_C = ("SELECT lo_orderkey, lo_revenue, lo_quantity, c_city FROM "
+          "lineorder WHERE p_brand1 = 'MFGR#2221' AND s_region = 'AMERICA'")
+SEARCH_VERB = "SEARCH DRUID DATASOURCE lineorder FOR 'united'"
+SEARCH_CITIES = {"queryType": "search", "dataSource": "lineorder",
+                 "searchDimensions": ["c_city", "s_city"],
+                 "query": {"type": "insensitive_contains", "value": "united"},
+                 "limit": 20, "sort": {"type": "strlen"}}
+SEARCH_NUMERIC = {"queryType": "search", "dataSource": "lineorder",
+                  "searchDimensions": ["d_year", "c_region"],
+                  "query": {"type": "insensitive_contains", "value": "9"}}
+TIME_BOUNDARY = {"queryType": "timeBoundary", "dataSource": "lineorder"}
+TIME_BOUNDS = [{"queryType": "timeBoundary", "dataSource": "lineorder",
+                "bound": b, "intervals": ["1994-05-01/1996-02-01"]}
+               for b in ("minTime", "maxTime")]
+SEGMENT_METADATA = {"queryType": "segmentMetadata",
+                    "dataSource": "lineorder"}
+
+
+def mask_bound(prog, inputs, valid, seg_mask):
+    """(bytes_ms, ops_ms, bytes) of one row-mask launch on these inputs:
+    the valid bytes of kept segments, the mask cone's streams for their
+    valid rows, the program's tables and the mask written (every row);
+    operations: the cone's instructions per valid row of a kept
+    segment, over the card's INT32 rate."""
+    import numpy as np
+    from tpu_olap_torch.kernels import rowprog
+    kept = int(seg_mask.sum())
+    n_base = int((valid & seg_mask[:, None]).sum())
+    read = kept * valid.shape[1] + seg_mask.numel() + prog.data.nbytes
+    for s in prog.cone_slots:
+        read += n_base * inputs[s].element_size()
+    nbytes = read + valid.numel()
+    alu = ~np.isin(prog.ins[:prog.exit_pc, 0],
+                   (rowprog.LOAD, rowprog.IMM, rowprog.EXITZ))
+    ops = int(alu.sum()) * n_base
+    return (nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3,
+            nbytes)
+
+
+def scan_phase(eng, d, reps, tag, flush_l2):
+    """Phase 8: the non-aggregate query types on the card, each against
+    an Engine(device="cpu") over the same segments. Returns the row-mask
+    kernel's JSON entry."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from tpu_olap_torch import Engine
+    from tpu_olap_torch.bench import ssb
+    from tpu_olap_torch.executor import runner as runner_mod
+    from tpu_olap_torch.kernels import fused_reduce as fr
+    from tpu_olap_torch.kernels import row_mask as rm
+    eng.config.use_fused_reduce = "auto"
+    entry = eng.catalog.get("lineorder")
+    seg = entry.segments
+    cpu = Engine(device="cpu")
+    cpu.register_table("lineorder", None, time_column=entry.time_column,
+                       star_schema=ssb.star_schema(), segments=seg)
+    pages = [0, 100, 200]
+
+    def page(e, off):
+        return e.select_page("lineorder", columns=("c_city", "s_city"),
+                             page_size=100, offset=off)
+
+    # (name, kind, fn(engine) -> result, mask launches, host copies)
+    queries = [
+        ("scan A", "scan", lambda e: e.sql(SCAN_A), 1, 1),
+        ("scan B", "scan", lambda e: e.sql(SCAN_B), 1, 1),
+        ("scan C", "scan", lambda e: e.sql(SCAN_C), 1, 1),
+        *[(f"select page {i + 1}", "select",
+           lambda e, o=o: page(e, o), 1, 1) for i, o in enumerate(pages)],
+        ("search verb", "search", lambda e: e.sql(SEARCH_VERB), 1, 1),
+        ("search IN c_city, s_city", "search",
+         lambda e: e.execute_ir(SEARCH_CITIES), 1, 1),
+        ("search d_year, c_region", "search",
+         lambda e: e.execute_ir(SEARCH_NUMERIC), 1, 2),
+        ("time boundary", "metadata",
+         lambda e: e.execute_ir(TIME_BOUNDARY), 0, 0),
+        *[(f"time boundary {q['bound']}", "metadata",
+           lambda e, q=q: e.execute_ir(q), 0, 0) for q in TIME_BOUNDS],
+        ("segment metadata", "metadata",
+         lambda e: e.execute_ir(SEGMENT_METADATA), 0, 0),
+        ("explain scan A", "verb",
+         lambda e: e.sql("EXPLAIN DRUID REWRITE " + SCAN_A), 0, 0),
+    ]
+
+    def same(a, b, label):
+        if isinstance(a, pd.DataFrame):
+            try:
+                pd.testing.assert_frame_equal(a, b, check_exact=True)
+            except AssertionError as e:
+                fail(f"{label}: the card's frame differs from the CPU "
+                     f"engine's: {e}")
+        elif isinstance(a, tuple):
+            if a != b:
+                fail(f"{label}: the card's page differs from the CPU's")
+        elif a.rows != b.rows or a.druid != b.druid:
+            fail(f"{label}: the card's result differs from the CPU's")
+
+    def size(r):
+        if isinstance(r, tuple):
+            return len(r[0])
+        return len(r) if isinstance(r, pd.DataFrame) else len(r.rows)
+
+    # the main path: every mask launch recorded (its inputs) for replay
+    calls, current = {}, [None]
+    real = rm.row_mask
+
+    def record(*a):
+        calls.setdefault(current[0], a)
+        return real(*a)
+
+    rm.row_mask = record
+    rm.launches = 0
+    fr_before = fr.launches
+    got, first, metrics, launched = {}, {}, {}, {}
+    try:
+        for name, _, fn, _, _ in queries:
+            current[0] = name
+            before = rm.launches
+            t = time.perf_counter()
+            got[name] = fn(eng)
+            torch.cuda.synchronize()
+            first[name] = (time.perf_counter() - t) * 1000
+            launched[name] = rm.launches - before
+            metrics[name] = dict(eng.runner.last_metrics)
+        mask_launches = rm.launches
+        numeric_fused = fr.launches - fr_before
+    finally:
+        rm.row_mask = real
+    for name, kind, fn, want_launches, want_copies in queries:
+        m = metrics[name]
+        if launched[name] != want_launches:
+            fail(f"{name}: the row-mask kernel launched {launched[name]} "
+                 f"times, not {want_launches}")
+        if kind in ("scan", "select", "search") and (
+                m.get("host_copies") != want_copies
+                or not m.get("mask_kernel")):
+            fail(f"{name}: {m.get('host_copies')} device-to-host copies, "
+                 f"mask kernel {m.get('mask_kernel')} "
+                 f"({m.get('mask_reason')})")
+        same(got[name], fn(cpu), name)
+        if size(got[name]) == 0:
+            fail(f"{name} returned nothing")
+    if numeric_fused < 1:
+        fail("the numeric search dimension's GroupBy did not launch the "
+             "fused kernel")
+    print(f"[8 scan] {len(queries)} queries: answers == Engine(device="
+          f"'cpu') exactly; row-mask launches per query "
+          f"{json.dumps(launched)} ({mask_launches} in all); fused-kernel "
+          f"launches of the numeric search dimension {numeric_fused}",
+          flush=True)
+
+    # scan C against pandas on the denormalized frame
+    m = (d.p_brand1 == "MFGR#2221") & (d.s_region == "AMERICA")
+    c = got["scan C"]
+    if len(c) != int(m.sum()) or any(
+            int(c[k].sum()) != int(d[k][m].sum())
+            for k in ("lo_orderkey", "lo_revenue", "lo_quantity")):
+        fail(f"scan C: {len(c)} rows against pandas {int(m.sum())}, or "
+             "its column sums differ")
+    # scan B cuts the segment window and its offset crosses a segment
+    mb = metrics["scan B"]
+    if "segments_window" not in mb:
+        fail("scan B did not cut the segment window")
+    plan = cpu.runner._lower_cached(cpu.planner.plan(SCAN_B).query, seg)
+    per_seg = cpu.runner._run_mask(plan, {}).sum(1)
+    per_seg = [int(x) for x in per_seg if int(x)][::-1]   # descending
+    if not per_seg or per_seg[0] > 1000:
+        fail(f"scan B's OFFSET 1000 stays in its first segment: passing "
+             f"rows per segment, descending {per_seg}")
+    print(f"[8 scan] scan C == pandas ({len(c)} rows, column sums); scan B "
+          f"window {mb['segments_window']} of {mb['segments_total']} "
+          f"segments, passing rows per segment descending {per_seg}: "
+          f"OFFSET 1000 crosses from the first into a later one",
+          flush=True)
+
+    # replay every mask launch: kernel against its plain version
+    max_err = 0
+    for name, a in calls.items():
+        k = rm.row_mask(*a)
+        torch.cuda.synchronize()
+        ref = rm.row_mask_ref(*a)
+        if k.shape != ref.shape or k.dtype != ref.dtype:
+            fail(f"{name}: row-mask kernel output {k.shape}/{k.dtype} vs "
+                 f"plain {ref.shape}/{ref.dtype}")
+        diff = int((k != ref).sum())
+        max_err = max(max_err, diff)
+        if diff:
+            fail(f"{name}: the row-mask kernel disagrees with the plain "
+                 f"version on {diff} rows")
+    print(f"[8 replay] {len(calls)} row-mask launches replayed: kernel == "
+          f"plain version on every row", flush=True)
+
+    # no host sync before the one copy
+    real_copy = runner_mod.to_host
+
+    def copy_allowed(buf, metrics):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real_copy(buf, metrics)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    runner_mod.to_host = copy_allowed
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, kind, fn, _, _ in queries:
+            if kind in ("scan", "select", "search"):
+                try:
+                    fn(eng)
+                except RuntimeError as e:
+                    fail(f"{name}: a host sync before the copy: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        runner_mod.to_host = real_copy
+    print("[8 sync] scans, pages and searches ran under torch.cuda."
+          "set_sync_debug_mode('error'), lifted only for the copy: no host "
+          "sync before it", flush=True)
+
+    # timings
+    for name, kind, fn, _, _ in queries:
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn(eng)
+            ts.append((time.perf_counter() - t) * 1000)
+        m = metrics[name]
+        print(f"[8 query] {name} ({kind}): {size(got[name])} rows | first "
+              f"run {first[name]:.1f} ms, p50 {float(np.median(ts)):.3f} ms "
+              f"| route {m.get('route')}, host copies {m.get('host_copies')},"
+              f" bytes copied {m.get('host_bytes', 0)}, mask launches "
+              f"{launched[name]}, window {m.get('segments_window', '-')} "
+              f"{tag}", flush=True)
+    busy = device_busy({name: (lambda fn=fn: fn(eng))
+                        for name, kind, fn, _, _ in queries
+                        if kind in ("scan", "select", "search")},
+                       MASK_KERNEL)
+    print(f"[8 device] {busy} {tag}", flush=True)
+    for name, kind, fn, _, _ in queries:
+        if name in ("scan A", "scan C", "search verb"):
+            print(f"[8 device] {name} under torch.profiler: "
+                  f"{top_kernels(lambda fn=fn: fn(eng), 4)} {tag}",
+                  flush=True)
+    t = time.perf_counter()
+    out = eng.sql("CLEAR DRUID CACHE")
+    clear_ms = (time.perf_counter() - t) * 1000
+    if out.status[0] != "cleared cache" or eng.runner.device_bytes():
+        fail(f"CLEAR DRUID CACHE left {eng.runner.device_bytes()} bytes")
+    t = time.perf_counter()
+    again = eng.sql(SCAN_A)
+    torch.cuda.synchronize()
+    again_ms = (time.perf_counter() - t) * 1000
+    same(again, got["scan A"], "scan A after CLEAR DRUID CACHE")
+    print(f"[8 query] CLEAR DRUID CACHE {clear_ms:.1f} ms, then scan A's "
+          f"first run after re-upload {again_ms:.1f} ms (before the clear: "
+          f"first run {first['scan A']:.1f} ms) {tag}", flush=True)
+
+    # the kernel at each scan's inputs: device time warm and cold against
+    # its bound, and the plain version's time
+    entry_json = None
+    for name in ("scan A", "scan B", "scan C"):
+        a = calls[name]
+        prog, inputs, valid, seg_mask = a
+        bytes_ms, ops_ms, nbytes = mask_bound(*a)
+        bound = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        warm, how = timed(lambda: rm.row_mask(*a), 20, MASK_KERNEL)
+        cold = timed(lambda: rm.row_mask(*a), 20, MASK_KERNEL, flush_l2)[0]
+        plain, _ = timed(lambda: rm.row_mask_ref(*a), 5)
+        kern = rm.compiled(prog, "cuda")
+        print(f"[8 kernel] row mask at {name} ({valid.numel()} rows in the "
+              f"window, {int(seg_mask.sum())} of {seg_mask.numel()} segments "
+              f"kept, {len(prog.cone_slots)} cone streams, "
+              f"{prog.exit_pc - prog.n_pro} row instructions): cold "
+              f"{cold:.4f} ms, warm {warm:.4f} ms ({how}) | bound "
+              f"{bound:.4f} ms ({nbytes} B, {by}; bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}) = {cold / bound:.1f}x cold, "
+              f"{warm / bound:.1f}x warm | plain {plain:.4f} ms | "
+              f"{plan_report(kern)} {tag}", flush=True)
+        if entry_json is None:
+            entry_json = {
+                "name": "row_mask", "route": "cuda",
+                "source": "tpu_olap_torch/csrc/row_mask_gen.cuh",
+                "replaces": "tpu_olap/executor/lowering.py:654 (_lower_mask,"
+                            " an XLA program, not Pallas)",
+                "launches": mask_launches, "max_abs_err": max_err,
+                "ms": cold, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": by, "library_ms": None, "at": name}
+    return entry_json
+
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=6_000_000,
@@ -544,7 +857,6 @@ def main():
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    reports, build_error = {}, []
     # every call of the wrapper is recorded by (phase, query): its inputs,
     # not copies, so it can be replayed against the plain version later
     calls, current = {}, [None]
@@ -554,14 +866,6 @@ def main():
         calls.setdefault(current[0], a)
         return real(*a)
 
-    def build_interp():
-        try:
-            reports.update(cuda_build.build(["fused_reduce"]))
-        except Exception as e:  # reported and failed on below
-            build_error.append(e)
-
-    nvcc_thread = threading.Thread(target=build_interp)
-    nvcc_thread.start()
     print(f"[2 build] {cuda_build.nvrtc_version()} found; options "
           f"{' '.join(cuda_build.NVRTC_OPTIONS)}", flush=True)
     for f in list(cuda_build.BUILD.glob("gen-*")):
@@ -628,13 +932,6 @@ def main():
           f"{max(other_ms.values()):.1f} ms (the queries' own first runs, "
           f"compile included: {min(first_ms.values()):.1f}-"
           f"{max(first_ms.values()):.1f} ms) {tag}", flush=True)
-    nvcc_thread.join()
-    if build_error:
-        fail(f"nvcc build of the interpreter failed: {build_error[0]}")
-    for name, log in reports.items():
-        for ln in log.splitlines():
-            if any(w in ln for w in ("registers", "spill", "Compiling")):
-                print(f"[2 build] {name}: {ln.strip()}", flush=True)
     print(f"[2 build] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 3. kernels vs plain version ----------------------------------------
@@ -653,14 +950,13 @@ def main():
                   f"{'mixed' if mixed else 'ssb'} ({path} table, "
                   f"{len(prog.ins)} instructions; generated: "
                   f"{plan_report(kern)}): max |generated - plain| = "
-                  f"max |interpreter - plain| = {err}", flush=True)
+                  f"{err}", flush=True)
     del case
 
     # -- 4. the main path --------------------------------------------------
     per_query, copies = {}, {}
     fr.fused_reduce = record
     fr.launches = 0
-    fr.interp_launches = 0
     try:
         for name, q in ssb.QUERIES.items():
             current[0] = name
@@ -676,15 +972,12 @@ def main():
                 fail(f"{name} took the {m['route']} route with "
                      f"{m['host_copies']} device-to-host copies")
         torch.cuda.synchronize()
-        launches, interp_launches = fr.launches, fr.interp_launches
+        launches = fr.launches
     finally:
         fr.fused_reduce = real
     missing = [n for n, c in per_query.items() if c < 1]
     if missing:
         fail(f"the generated kernel launched no time on {missing}")
-    if interp_launches:
-        fail(f"the main path launched the interpreter {interp_launches} "
-             "times")
     eng.config.use_fused_reduce = "never"
     before = fr.launches
     for name, q in ssb.QUERIES.items():
@@ -719,11 +1012,11 @@ def main():
     print(f"[4 ssb] 13/13 queries: fused == generic torch reduce, q1.1 and "
           f"q2.1 == pandas, the 13 with other literals == generic "
           f"torch reduce; generated-kernel launches per query "
-          f"{json.dumps(per_query)} ({launches} in all), interpreter "
-          f"launches {interp_launches}; packed route, device-to-host "
+          f"{json.dumps(per_query)} ({launches} in all); packed route, "
+          f"device-to-host "
           f"copies per query {json.dumps(copies)}", flush=True)
-    # replay each query's launch: generated kernel, interpreter and plain
-    # version on the same inputs
+    # replay each query's launch: generated kernel and plain version on
+    # the same inputs
     shapes = {}
     main_calls = {k: a for k, a in calls.items() if isinstance(k, str)}
     other_err = max(check_kernel(fr, calls[("other", name)],
@@ -731,7 +1024,7 @@ def main():
                     for name in ssb.QUERIES)
     max_err = max(max_err, other_err)
     print(f"[4 replay] the 13 launches with other literals: max |generated "
-          f"- plain| = max |interpreter - plain| = {other_err}", flush=True)
+          f"- plain| = {other_err}", flush=True)
     for name, a in main_calls.items():
         err, got = check_kernel(fr, a, name)
         max_err = max(max_err, err)
@@ -743,8 +1036,7 @@ def main():
               f"per row before EXITZ), {len(prog.loaded_slots)} streams "
               f"read ({len(prog.cone_slots)} in the mask's cone), K={a[4]}, "
               f"{prog.n_cols} columns, grid {kern.last_grid} blocks: "
-              f"max |generated - plain| = max |interpreter - plain| = "
-              f"{err}", flush=True)
+              f"max |generated - plain| = {err}", flush=True)
 
     # -- 5. timings --------------------------------------------------------
     p50 = {}
@@ -777,10 +1069,11 @@ def main():
               f"prepare {m['prepare_ms']:.3f} | execute (front half + "
               f"kernel + fetch) {m['execute_ms']:.3f} | finalize+assemble "
               f"{m['assemble_ms']:.3f} ms {tag}", flush=True)
-    print(f"[5 device] {device_busy(eng, ssb.QUERIES)} {tag}", flush=True)
+    busy = device_busy({n: (lambda q=q: eng.sql(q))
+                        for n, q in ssb.QUERIES.items()})
+    print(f"[5 device] {busy} {tag}", flush=True)
 
-    # the kernels at the main path's inputs, as recorded in phase 4: the
-    # interpreter and the generated kernel in turns on one card, first
+    # the kernel at the main path's inputs, as recorded in phase 4: first
     # with the inputs left in the 50 MB L2 by the launch before (warm),
     # then with L2 overwritten before every launch (cold: the bytes come
     # from HBM, as the bound assumes)
@@ -796,18 +1089,13 @@ def main():
         bytes_ms, ops_ms, nbytes = kernel_bound(*a, sums)
         bound = max(bytes_ms, ops_ms)
         by = "bytes" if bytes_ms >= ops_ms else "operations"
-        turns, cold = [], []
-        for which in ("interp", "gen", "gen", "interp"):
-            fn = fr.fused_reduce if which == "gen" else fr.fused_reduce_interp
-            kname = GEN_KERNEL if which == "gen" else INTERP_KERNEL
-            ms, ms_how = timed(lambda: fn(*a), 20, kname)
-            turns.append(ms)
-        for which in ("interp", "gen", "gen", "interp"):
-            fn = fr.fused_reduce if which == "gen" else fr.fused_reduce_interp
-            kname = GEN_KERNEL if which == "gen" else INTERP_KERNEL
-            cold.append(timed(lambda: fn(*a), 20, kname, flush_l2)[0])
-        interp_ms = (cold[0] + cold[3]) / 2
-        gen_ms = (cold[1] + cold[2]) / 2
+        warm, cold = [], []
+        for _ in range(2):
+            ms, ms_how = timed(lambda: fr.fused_reduce(*a), 20, GEN_KERNEL)
+            warm.append(ms)
+            cold.append(timed(lambda: fr.fused_reduce(*a), 20, GEN_KERNEL,
+                              flush_l2)[0])
+        gen_ms = sum(cold) / 2
         plain_ms, _ = timed(lambda: fr.fused_reduce_ref(*a), 5)
         # yardstick: one torch call reducing the same sum columns over the
         # selected rows' keys, gathered outside the timing
@@ -825,18 +1113,14 @@ def main():
         n_sel = int(sums[:, 0].sum())
         kern = fr.compiled(prog, K, "cuda")
         del regs, sel, src, out
-        warm_gain = (turns[0] + turns[3]) / (turns[1] + turns[2])
         print(f"[5 kernel] at {name} (N={valid.numel()}, rows in kept "
               f"segments {int((valid & seg_mask[:, None]).sum())}, selected "
-              f"{n_sel}, K={K}, columns {prog.n_cols}): warm L2: "
-              f"interpreter {turns[0]:.4f} / {turns[3]:.4f} ms, generated "
-              f"{turns[1]:.4f} / {turns[2]:.4f} ms ({ms_how}, in turns) = "
-              f"{warm_gain:.2f}x; cold L2: interpreter {cold[0]:.4f} / "
-              f"{cold[3]:.4f} ms, generated {cold[1]:.4f} / {cold[2]:.4f} "
-              f"ms = {interp_ms / gen_ms:.2f}x | bound {bound:.4f} ms "
+              f"{n_sel}, K={K}, columns {prog.n_cols}): generated, warm L2 "
+              f"{warm[0]:.4f} / {warm[1]:.4f} ms, cold L2 {cold[0]:.4f} / "
+              f"{cold[1]:.4f} ms ({ms_how}) | bound {bound:.4f} ms "
               f"({nbytes} B, {by}; bytes {bytes_ms:.4f}, operations "
               f"{ops_ms:.4f}) = generated at {gen_ms / bound:.1f}x the bound "
-              f"cold, {(turns[1] + turns[2]) / 2 / bound:.1f}x warm | plain "
+              f"cold, {sum(warm) / 2 / bound:.1f}x warm | plain "
               f"{plain_ms:.4f} ms | index_add_ over the selected rows "
               f"{lib_ms:.4f} ms | back-to-back wrapper calls between CUDA "
               f"events {event_ms:.4f} ms each | grid {kern.last_grid} "
@@ -849,11 +1133,6 @@ def main():
                      "source": "tpu_olap_torch/csrc/fused_reduce_gen.cuh",
                      "replaces": "tpu_olap/kernels/pallas_reduce.py:536",
                      "launches": launches, "ms": gen_ms, **common})
-        rows.append({"name": "fused_reduce_interp", "route": "cuda",
-                     "source": "tpu_olap_torch/csrc/fused_reduce.cu",
-                     "replaces": "tpu_olap/kernels/pallas_reduce.py:536",
-                     "launches": interp_launches, "ms": interp_ms,
-                     "on_main_path": False, **common})
 
     packed_phase(eng, args.reps, tag)
     distinct_phase(eng, denorm, args.reps, tag)
@@ -862,7 +1141,9 @@ def main():
     print(f"[5 memory] resident device bytes {resident}; "
           f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()}"
           f" {tag}", flush=True)
-    print(json.dumps({"kernels": [r for r in rows if r["at"] == "q2.1"]}))
+    rows.append(scan_phase(eng, denorm, args.reps, tag, flush_l2))
+    print(json.dumps({"kernels": [r for r in rows
+                                  if r["at"] in ("q2.1", "scan A")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -216,23 +216,6 @@ def test_cuda_kernel_matches_plain_version(K):
         assert torch.equal(g, w)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("K", [1, 6952, 65536])
-def test_cuda_interpreter_matches_plain_version(K):
-    """The interpreter (the generated kernel's A/B baseline) gives the
-    plain version's result."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    prog = rowprog.trace(_row_fn, SLOTS)
-    t, valid, seg = _random_case(1 << 20, K, 4, device="cuda")
-    args = (prog, _inputs(prog, t), valid, seg, K)
-    want = fr.fused_reduce_ref(*args)
-    got = fr.fused_reduce_interp(*args)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-
-
 def test_group_space_past_cap_takes_generic_reduce(engines):
     """Past the cap (65,536 groups) the plan keeps the generic reduce and
     still answers like the JAX package's generic reduce."""

@@ -107,18 +107,6 @@ def test_program_layout():
     assert prog.cone_slots == {0, 1, 4}   # a, b and n decide the mask
 
 
-def test_packed_instructions_decode():
-    """The kernel's 16-byte instruction words decode to the program."""
-    prog, _, _, _ = _trace_and_eval(1)
-    w = prog.packed()
-    assert w.dtype == np.int32 and w.shape == (len(prog.ins), 4)
-    head = w[:, 0].astype(np.int64)
-    assert (head & 0xff).tolist() == prog.ins[:, 0].tolist()
-    assert ((head >> 8) & 0xff).tolist() == prog.ins[:, 1].tolist()
-    assert (head >> 16).tolist() == prog.ins[:, 2].tolist()  # EXITZ: -1
-    assert (w[:, 1:] == prog.ins[:, 3:]).all()
-
-
 def _trace_one(fn, dtype=torch.int32):
     slots = (("x", "col", dtype), ("", "base", torch.bool))
     return rowprog.trace(lambda s: (s[1], fn(s[0]), [(None, None)], []),

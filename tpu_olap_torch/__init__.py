@@ -6,8 +6,10 @@ out: the planner (`planner`) rewrites SQL into the query IR (`ir`), which
 lowers (`executor.lowering`) to torch tensor code over dictionary-encoded
 columnar segments (`segments`) kept resident on the card
 (`executor.dataset`). Filter, group key and grouped reduce run in one
-hand-written CUDA kernel for Hopper (`kernels.fused_reduce`,
-`kernels.rowprog`, `csrc/fused_reduce.cu`).
+CUDA kernel for Hopper generated per plan (`kernels.fused_reduce`,
+`kernels.rowprog`, `kernels.rowgen`, `csrc/fused_reduce_gen.cuh`); a
+scan's row mask runs in a generated kernel of its own
+(`kernels.row_mask`, `csrc/row_mask_gen.cuh`).
 
 The package imports torch and never JAX. Entry points run on ``cuda``
 unless the caller asks for the CPU (``EngineConfig(device="cpu")``); on

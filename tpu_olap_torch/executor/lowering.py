@@ -5,8 +5,9 @@ setup (SURVEY.md §4.2): the lowered kernel closure reads literals from a
 named ConstPool dict and runs as torch ops over the resident column
 stacks. Anything the device path can't express raises Unsupported*.
 This package lowers Timeseries / GroupBy / TopN over a dense group space,
-and a GroupBy past the dense budgets to the sort-based sparse group-by;
-scan/select and search are not ported yet and raise.
+a GroupBy past the dense budgets to the sort-based sparse group-by, and
+Scan / Select to a row mask (the runner assembles the rows on the host;
+Search runs its mask through a Scan plan).
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ import numpy as np
 import torch
 
 from tpu_olap_torch.ir.interval import ETERNITY
-from tpu_olap_torch.ir.query import (GroupByQuerySpec, TimeseriesQuerySpec,
-                                     TopNQuerySpec)
-from tpu_olap_torch.kernels import fused_reduce
+from tpu_olap_torch.ir.query import (GroupByQuerySpec, ScanQuerySpec,
+                                     SearchQuerySpec, SelectQuerySpec,
+                                     TimeseriesQuerySpec, TopNQuerySpec)
+from tpu_olap_torch.kernels import fused_reduce, row_mask
 from tpu_olap_torch.kernels.exprs import materialize_virtuals
 from tpu_olap_torch.kernels.filtereval import ConstPool, compile_filter
 from tpu_olap_torch.kernels.groupby import (UnsupportedAggregation,
@@ -27,6 +29,7 @@ from tpu_olap_torch.kernels.groupby import (UnsupportedAggregation,
                                             compile_aggregations,
                                             group_reduce)
 from tpu_olap_torch.kernels.hll import NUM_REGISTERS
+from tpu_olap_torch.kernels.rowprog import RowProgramError
 from tpu_olap_torch.kernels.sparse_groupby import (build_group_key64,
                                                    sparse_group_reduce)
 from tpu_olap_torch.kernels.timebucket import compile_granularity
@@ -38,10 +41,11 @@ from tpu_olap_torch.segments.segment import ColumnType, TIME_COLUMN
 class PhysicalPlan:
     query: object
     table: object
-    kind: str                  # "agg"
+    kind: str                  # "agg" or "mask"
     pool: ConstPool = None
     kernel: object = None      # fn(env, valid, seg_mask, consts) -> partials
-    #                            (None on the sparse path)
+    #                            (None on the sparse path; the bool [S, R]
+    #                            row mask on a mask plan)
     dim_plans: list = field(default_factory=list)
     bucket_plan: object = None
     agg_plans: list = field(default_factory=list)
@@ -59,8 +63,12 @@ class PhysicalPlan:
     # materializes each once per content token (see dataset.derived)
     filter_streams: tuple = ()
     # fn(env, mask, consts) -> (key, mask, env): the row front half
+    # (-> mask on a mask plan)
     front_half: object = None
     fused_reason: str | None = "not attempted"  # None = fused reduce active
+    # mask plans: None = the row-mask kernel (kernels.row_mask) serves it,
+    # else why the torch front half does
+    mask_reason: str | None = None
     sparse: bool = False       # the sort-based sparse group-by serves it
     # cap -> fn(env, valid, seg_mask, consts) -> compact sparse partials
     make_sparse_kernel: object = None
@@ -70,8 +78,12 @@ def lower(query, table, config) -> PhysicalPlan:
     if isinstance(query, (TimeseriesQuerySpec, GroupByQuerySpec,
                           TopNQuerySpec)):
         return _lower_agg(query, table, config)
+    if isinstance(query, (ScanQuerySpec, SelectQuerySpec)):
+        return _lower_mask(query, table, config)
+    if isinstance(query, SearchQuerySpec):
+        raise AssertionError("search queries lower via runner._run_search")
     raise UnsupportedAggregation(
-        f"not yet ported: device lowering for {type(query).__name__}")
+        f"no device lowering for {type(query).__name__}")
 
 
 def _sparse_reject_reason(query, total) -> str | None:
@@ -481,6 +493,70 @@ def _lower_agg(query, table, config) -> PhysicalPlan:
         plan.fused_reason = "sparse group-by"
     else:
         _maybe_use_fused(plan, table, config)
+    return plan
+
+
+def _lower_mask(query, table, config) -> PhysicalPlan:
+    """Scan/Select: the device computes the row mask; the runner
+    assembles the rows on the host. The mask is the plan's front half
+    (validity ∧ segment ∧ filter ∧ interval); the row-mask kernel
+    (kernels.row_mask) runs it as one generated launch, and a front half
+    that does not trace into a row program runs as torch ops, with the
+    reason in plan.mask_reason."""
+    pool = ConstPool()
+    intervals, t_min, t_max, empty = _time_range(query, table)
+    vexprs = {v.name: v.expression for v in query.virtual_columns}
+    filter_fn = (compile_filter(query.filter, table, pool, vexprs)
+                 if query.filter is not None else None)
+    imask_fn = _interval_mask_fn(intervals, *table.time_boundary, pool)
+    pruned_segs = table.prune(
+        intervals, _filter_numeric_bounds(query.filter, table, vexprs))
+    imask_fn = _elide_covered_imask(imask_fn, pruned_segs, intervals)
+
+    cols: set[str] = set()
+    if query.filter is not None:
+        cols |= query.filter.columns()
+    phys: set[str] = set()
+    for c in cols:
+        phys |= vexprs[c].columns() if c in vexprs else {c}
+    if imask_fn is not None:
+        phys.add(TIME_COLUMN)
+    unknown = [c for c in phys if c not in table.schema]
+    if unknown:
+        from tpu_olap_torch.kernels.filtereval import UnsupportedFilter
+        raise UnsupportedFilter(f"unknown columns {unknown}")
+    null_cols = tuple(sorted(
+        c for c in phys if table.schema[c] is not ColumnType.STRING))
+
+    def front_half(env, mask, consts):
+        """Flat env {"cols", "nulls"} and base mask (validity ∧ segment)
+        -> the row mask."""
+        cols, nulls = dict(env["cols"]), dict(env["nulls"])
+        materialize_virtuals(vexprs, cols, nulls)
+        fenv = {"cols": cols, "nulls": nulls}
+        if filter_fn is not None:
+            mask = mask & filter_fn(fenv, consts)
+        if imask_fn is not None:
+            mask = mask & imask_fn(fenv, consts)
+        return mask
+
+    def kernel(env, valid, seg_mask, consts):
+        flat = {"cols": {c: a.reshape(-1) for c, a in env["cols"].items()},
+                "nulls": {c: a.reshape(-1)
+                          for c, a in env["nulls"].items()}}
+        base = (valid & seg_mask[:, None]).reshape(-1)
+        return front_half(flat, base, consts).reshape(valid.shape)
+
+    plan = PhysicalPlan(
+        query=query, table=table, kind="mask", pool=pool, kernel=kernel,
+        pruned_ids=[s.meta.segment_id for s in pruned_segs], t_min=t_min,
+        t_max=t_max, empty=empty, columns=tuple(sorted(phys)),
+        null_cols=null_cols, virtual_exprs=vexprs,
+        filter_streams=_dedupe_streams(pool), front_half=front_half)
+    try:
+        plan.kernel = row_mask.build_kernel(plan, table, config.device)
+    except RowProgramError as e:
+        plan.mask_reason = f"front half: {e}"
     return plan
 
 

@@ -15,8 +15,14 @@ Three routes on one device, as in the JAX package:
   - sparse (a GroupBy past the dense budgets): the sort-based sparse
     group-by (kernels.sparse_groupby), re-run at the next power of two
     while the groups overflow its cap, up to `sparse_group_budget`.
-The caches, the batch coalescer, the stage graph, the mesh and the
-scan/search/metadata query types are not ported yet.
+Scan and Select take the mask route: the row-mask kernel
+(kernels.row_mask) computes the row mask on the device, one copy brings
+it back, and the host gathers the rows from the host segment columns.
+Search counts the coded dimensions' values under the same mask on the
+device (one copy) and runs a GroupBy per numeric dimension;
+TimeBoundary and SegmentMetadata read the table's manifest.
+The caches, the batch coalescer, the stage graph and the mesh are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -36,11 +42,16 @@ from tpu_olap_torch.executor.results import (agg_specs_by_name, eval_having,
                                              eval_post_aggs, finalize_aggs,
                                              iso, render_value,
                                              theta_raw_fields)
+from tpu_olap_torch.ir.aggregations import CountAggregation
+from tpu_olap_torch.ir.dimensions import DefaultDimensionSpec
 from tpu_olap_torch.ir.interval import ETERNITY
 from tpu_olap_torch.kernels.filtereval import _take
 from tpu_olap_torch.kernels.sparse_groupby import SENTINEL
-from tpu_olap_torch.ir.query import (GroupByQuerySpec, TimeseriesQuerySpec,
-                                     TopNQuerySpec)
+from tpu_olap_torch.ir.query import (GroupByQuerySpec, ScanQuerySpec,
+                                     SearchQuerySpec,
+                                     SegmentMetadataQuerySpec,
+                                     SelectQuerySpec, TimeBoundaryQuerySpec,
+                                     TimeseriesQuerySpec, TopNQuerySpec)
 from tpu_olap_torch.segments.segment import TIME_COLUMN
 
 
@@ -82,19 +93,33 @@ class QueryRunner:
 
     def execute(self, query, table) -> QueryResult:
         t0 = time.perf_counter()
-        if not isinstance(query, (TimeseriesQuerySpec, GroupByQuerySpec,
-                                  TopNQuerySpec)):
-            raise NotImplementedError(
-                f"not yet ported: {query.query_type} queries")
-        res = self._run_agg(query, table)
+        if isinstance(query, TimeBoundaryQuerySpec):
+            res = self._run_time_boundary(query, table)
+        elif isinstance(query, SegmentMetadataQuerySpec):
+            res = self._run_segment_metadata(query, table)
+        elif isinstance(query, SearchQuerySpec):
+            res = self._run_search(query, table)
+        elif isinstance(query, (ScanQuerySpec, SelectQuerySpec)):
+            res = self._run_scan(query, table)
+        elif isinstance(query, (TimeseriesQuerySpec, GroupByQuerySpec,
+                                TopNQuerySpec)):
+            res = self._run_agg(query, table)
+        else:
+            raise TypeError(f"unknown query type {type(query).__name__}")
         res.metrics["total_ms"] = (time.perf_counter() - t0) * 1000
         return res
 
-    def clear_cache(self, table_name: str):
-        """Drop one table's resident columns and memoized plans."""
+    def clear_cache(self, table_name: str | None = None):
+        """Drop one table's resident columns, memoized plans and cap
+        hints, or every table's (None): the next query re-uploads."""
+        if table_name is None:
+            for store in (self._datasets, self._plan_cache, self._cap_hints):
+                store.clear()
+            return
         self._datasets.pop(table_name, None)
-        for k in [k for k in self._plan_cache if k[0] == table_name]:
-            del self._plan_cache[k]
+        for store in (self._plan_cache, self._cap_hints):
+            for k in [k for k in store if k[0] == table_name]:
+                del store[k]
 
     def device_bytes(self) -> int:
         """Resident device bytes over every table's dataset."""
@@ -479,11 +504,289 @@ class QueryRunner:
             druid.append({"timestamp": ts, "result": result})
         return QueryResult(query, rows, druid)
 
+    # ----------------------------------------------------------- scan paths
+
+    def _run_mask(self, plan: PhysicalPlan, metrics: dict) -> torch.Tensor:
+        """The plan's row mask over the dispatched segment window, on the
+        device: bool [W, R] (the whole stack when no window is cut)."""
+        args = self._dispatch_args(plan, metrics)
+        metrics["mask_kernel"] = plan.mask_reason is None
+        if plan.mask_reason is not None:
+            metrics["mask_reason"] = plan.mask_reason
+        return plan.kernel(*args)
+
+    def _run_scan(self, query, table) -> QueryResult:
+        metrics = self.last_metrics = {"host_copies": 0, "route": "mask"}
+        t0 = time.perf_counter()
+        plan = self._lower_cached(query, table)
+        metrics["lower_ms"] = (time.perf_counter() - t0) * 1000
+        t0 = time.perf_counter()
+        mask = to_host(self._run_mask(plan, metrics).reshape(-1), metrics)
+        metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
+        mask = _embed_windowed_mask(
+            mask, self._segment_window(plan, len(table.segments)),
+            len(table.segments))
+
+        t0 = time.perf_counter()
+        if isinstance(query, ScanQuerySpec):
+            cols = list(query.columns) if query.columns else \
+                [c for c in table.schema]
+            offset, limit = query.offset, query.limit
+            descending = query.order == "descending"
+        else:
+            dims = list(query.dimensions) or [
+                c for c, t in table.schema.items() if t.is_dim]
+            mets = list(query.metrics) or [
+                c for c, t in table.schema.items()
+                if not t.is_dim and c != TIME_COLUMN]
+            cols = [TIME_COLUMN] + dims + mets
+            offset, limit = query.paging_offset, query.page_size
+            descending = query.descending
+        events = _gather_rows(table, mask, cols, offset, limit, descending)
+        metrics["assemble_ms"] = (time.perf_counter() - t0) * 1000
+
+        if isinstance(query, ScanQuerySpec):
+            druid = [{"columns": cols, "events": events}]
+        else:
+            druid = [{
+                "timestamp": iso(plan.t_min),
+                "result": {
+                    "pagingIdentifiers": {"offset": offset + len(events)},
+                    "events": [{"offset": offset + i, "event": e}
+                               for i, e in enumerate(events)],
+                },
+            }]
+        return QueryResult(query, events, druid, metrics)
+
+    # ------------------------------------------------------------- metadata
+
+    def _run_search(self, query, table) -> QueryResult:
+        """One row-mask launch (filter + interval) shared by every coded
+        dimension, whose value counts under the mask are taken on the
+        device and packed into one vector: one copy back. A numeric
+        dimension (no dictionary) runs a GroupBy of its own."""
+        metrics = {"host_copies": 0, "route": "mask"}
+        dims = list(query.search_dimensions) or [
+            c for c, t in table.schema.items() if t.is_dim]
+        matcher = _search_matcher(query.query)
+        hits = []
+
+        coded = [d for d in dims if d in table.dictionaries]
+        if coded:
+            mask_query = ScanQuerySpec(
+                data_source=query.data_source,
+                intervals=query.intervals,
+                filter=query.filter,
+                virtual_columns=query.virtual_columns,
+            )
+            t0 = time.perf_counter()
+            plan = self._lower_cached(mask_query, table)
+            metrics["lower_ms"] = (time.perf_counter() - t0) * 1000
+            t0 = time.perf_counter()
+            mask = self._run_mask(plan, metrics).reshape(-1)
+            ds = self._dataset(table)
+            win = self._segment_window(plan, len(table.segments))
+            sl = slice(None) if win is None else slice(win[0],
+                                                       win[0] + win[1])
+            cards = [table.dictionaries[d].cardinality for d in coded]
+            packed = to_host(search_counts(
+                mask, [ds.col(d)[sl].reshape(-1) for d in coded], cards),
+                metrics)
+            metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
+            off = 0
+            for dim, card in zip(coded, cards):
+                d = table.dictionaries[dim]
+                counts = packed[off:off + card + 1]
+                off += card + 1
+                for code in np.nonzero(counts[1:])[0]:
+                    v = d.values[code]
+                    if matcher(v):
+                        hits.append({"dimension": dim, "value": v,
+                                     "count": int(counts[code + 1])})
+
+        numeric = [d for d in dims if d not in table.dictionaries]
+        if numeric:
+            metrics["numeric_dims"] = {}
+        for dim in numeric:
+            inner = GroupByQuerySpec(
+                data_source=query.data_source,
+                intervals=query.intervals,
+                filter=query.filter,
+                virtual_columns=query.virtual_columns,
+                dimensions=(DefaultDimensionSpec(dim),),
+                aggregations=(CountAggregation("count"),),
+            )
+            res = self._run_agg(inner, table)
+            metrics["host_copies"] += res.metrics["host_copies"]
+            metrics["numeric_dims"][dim] = {
+                k: res.metrics.get(k) for k in ("route", "fused",
+                                                "fused_reason")}
+            for r in res.rows:
+                # a search matches and reports a value's string form
+                # (Druid's); the JAX package hands the raw number to the
+                # matcher, which raises
+                v = None if r[dim] is None else str(r[dim])
+                if v is not None and matcher(v):
+                    hits.append({"dimension": dim, "value": v,
+                                 "count": int(r["count"])})
+        self.last_metrics = metrics
+        hits.sort(key=lambda h: (_search_sort_key(query.sort, h["value"]),
+                                 h["dimension"]))
+        hits = hits[:query.limit]
+        t0, _ = table.time_boundary
+        druid = [{"timestamp": iso(t0), "result": hits}]
+        return QueryResult(query, hits, druid, metrics)
+
+    def _run_time_boundary(self, query, table) -> QueryResult:
+        self.last_metrics = {"host_copies": 0, "route": "manifest"}
+        t0, t1 = table.time_boundary
+        intervals = query.intervals or (ETERNITY,)
+        lo = max(t0, min(iv.start for iv in intervals))
+        hi = min(t1, max(iv.end for iv in intervals) - 1)
+        result = {}
+        if query.bound in (None, "minTime"):
+            result["minTime"] = iso(lo)
+        if query.bound in (None, "maxTime"):
+            result["maxTime"] = iso(hi)
+        druid = [{"timestamp": iso(lo), "result": result}]
+        return QueryResult(query, [result], druid, self.last_metrics)
+
+    def _run_segment_metadata(self, query, table) -> QueryResult:
+        self.last_metrics = {"host_copies": 0, "route": "manifest"}
+        cols = table.column_metadata(set(query.to_include) or None)
+        t0, t1 = table.time_boundary
+        record = {
+            "id": f"{table.name}_merged",
+            "intervals": [f"{iso(t0)}/{iso(t1 + 1)}"],
+            "columns": cols,
+            "numRows": table.num_rows,
+            "size": int(sum(c.get("size", 0) for c in cols.values())),
+        }
+        return QueryResult(query, [record], [record], self.last_metrics)
+
+
+def search_counts(mask: torch.Tensor, codes: list, cards: list) -> \
+        torch.Tensor:
+    """Per coded dimension, the count of each dictionary code (0 = null)
+    among the rows the mask admits, packed into one int64 vector of
+    sum(card + 1) slots in dimension order.
+
+    Each dimension is one shared-memory histogram over its codes
+    (torch.histc on float64: exact below 2^53 rows, and a bin is exactly
+    its code), with the rows outside the mask sent below the histogram's
+    range, where histc drops them. Unlike torch.bincount it reads no
+    value back to the host, and unlike a scatter-add it does not
+    serialise millions of atomics on a few addresses."""
+    outs = []
+    for col, card in zip(codes, cards):
+        x = torch.where(mask, col.to(torch.float64), -1.0)
+        outs.append(torch.histc(x, bins=card + 1, min=-0.5,
+                                max=card + 0.5))
+    return torch.cat(outs).to(torch.int64)
+
+
+def _embed_windowed_mask(mask: np.ndarray, win, n_segments: int) -> \
+        np.ndarray:
+    """A mask over the dispatched segment window back into the full
+    segment stack, [S, R]: the assembly indexes rows by global segment
+    id, and the segments outside the window were pruned, so their rows
+    are all False."""
+    if win is None:
+        return mask.reshape(n_segments, -1)
+    lo, W = win
+    w = mask.reshape(W, -1)
+    full = np.zeros((n_segments, w.shape[1]), bool)
+    full[lo:lo + W] = w
+    return full
+
+
+def _gather_rows(table, mask, cols, offset, limit, descending):
+    """Columnar assembly: pick (segment, row) takes under the
+    offset/limit budget, then decode and convert each column once
+    (dictionary decode, tolist, null substitution) and zip into the
+    wire's list of dicts at the end."""
+    seg_iter = table.segments[::-1] if descending else table.segments
+    takes = []       # (segment, row-index array)
+    n_taken = 0
+    skipped = 0
+    budget = None if limit is None else offset + limit
+    for s in seg_iter:
+        m = mask[s.meta.segment_id]
+        idx = np.nonzero(m)[0]
+        if descending:
+            idx = idx[::-1]
+        if idx.size == 0:
+            continue
+        if budget is not None and skipped + n_taken + idx.size > budget:
+            idx = idx[:budget - skipped - n_taken]
+        take = idx
+        if skipped < offset:
+            drop = min(offset - skipped, take.size)
+            skipped += drop
+            take = take[drop:]
+        if take.size:
+            takes.append((s, take))
+            n_taken += take.size
+        if budget is not None and skipped + n_taken >= budget:
+            break
+    if not takes:
+        return []
+
+    out_cols = []
+    for c in cols:
+        v = np.concatenate([s.columns[c][take] for s, take in takes])
+        d = table.dictionaries.get(c)
+        if d is not None:
+            out_cols.append(d.decode(v).tolist())
+            continue
+        vals = v.tolist()  # numpy -> plain python in C
+        if any(c in s.null_masks for s, _ in takes):
+            nm = np.concatenate(
+                [s.null_masks[c][take] if c in s.null_masks
+                 else np.zeros(take.size, bool) for s, take in takes])
+            if nm.any():
+                vals = [None if n else x for x, n in zip(vals, nm)]
+        if v.dtype.kind == "f":
+            vals = [None if x != x else x for x in vals]  # NaN -> null
+        out_cols.append(vals)
+    return [dict(zip(cols, row)) for row in zip(*out_cols)]
+
+
+def _search_sort_key(sort: str, value: str):
+    if sort == "strlen":
+        return (len(value), value)
+    if sort == "alphanumeric":
+        # natural order: digit runs compare numerically
+        import re
+        parts = re.split(r"(\d+)", value)
+        return tuple((1, int(p)) if p.isdigit() else (0, p)
+                     for p in parts if p != "")
+    return value  # lexicographic
+
+
+def _search_matcher(sq):
+    if sq.fragments:
+        frags = [f if sq.case_sensitive else f.lower() for f in sq.fragments]
+
+        def m(v):
+            s = v if sq.case_sensitive else v.lower()
+            return all(f in s for f in frags)
+        return m
+    needle = sq.value if sq.case_sensitive else sq.value.lower()
+
+    def m(v):
+        s = v if sq.case_sensitive else v.lower()
+        return needle in s
+    return m
+
 
 def to_host(buf: torch.Tensor, metrics: dict) -> np.ndarray:
     """The one device-to-host copy of a query route: a 1-D tensor to a
-    numpy array (counted in metrics["host_copies"])."""
+    numpy array (counted in metrics["host_copies"], its bytes in
+    metrics["host_bytes"])."""
     metrics["host_copies"] = metrics.get("host_copies", 0) + 1
+    metrics["host_bytes"] = metrics.get("host_bytes", 0) \
+        + buf.numel() * buf.element_size()
     return buf.cpu().numpy()
 
 

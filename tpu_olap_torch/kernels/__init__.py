@@ -5,9 +5,11 @@
   boolean lookup tables over the global dictionary built on the host, so
   selector/in/regex/like are one gather on device (filtereval).
 - GROUP BY lowers to a mixed-radix dense group key + a segmented reduce:
-  the generic torch one (groupby) or the hand-written CUDA kernel
-  (fused_reduce, csrc/fused_reduce.cu), which also runs the row front
-  half — the same closures, traced into a row program (rowprog).
+  the generic torch one (groupby) or the CUDA kernel generated per plan
+  (fused_reduce, csrc/fused_reduce_gen.cuh, rowgen), which also runs the
+  row front half — the same closures, traced into a row program
+  (rowprog). A Scan/Select/Search row mask runs the same way in its own
+  generated kernel (row_mask, csrc/row_mask_gen.cuh).
 - Time bucketing is integer math for uniform periods and a searchsorted
   over host-computed calendar boundaries otherwise (timebucket).
 - Query literals ride in a ConstPool, shipped to the device once per plan.

@@ -1,21 +1,16 @@
-"""Build the package's CUDA kernels and load them with ctypes.
+"""Compile the package's generated CUDA kernels with NVRTC and launch
+them through the CUDA driver API, at first use, never at import.
 
-Two routes, both at first use, never at import:
-
-- `csrc/<name>.cu` sources with a plain C interface compile with `nvcc`
-  by hand into `_build/lib<name>-<hash>.so` (the hash is the source's,
-  so an edited source never loads a stale library). `build()` starts one
-  `nvcc` per source, all at once, and keeps each `-Xptxas -v` report
-  beside its library.
-- Generated sources (one per program structure, kernels.rowgen) compile
-  with NVRTC into cubins, cached in the process (the MAX_KERNELS most
-  recently used) and on disk as `_build/gen-<hash>.cubin` (the hash is
-  the source's and the options'; the MAX_CUBINS most recently used),
-  with NVRTC's log, `ptxas -v` report included, beside each. They load
-  and launch through the CUDA driver API (`cuModuleLoadData`,
-  `cuModuleGetFunction`, `cuLaunchKernel` on torch's current stream); a
-  module is unloaded when no cache or plan holds its kernel any more.
-  Every NVRTC and driver call checks its result and raises on failure.
+Generated sources (one per program structure: kernels.rowgen for the
+fused reduce, kernels.row_mask for the row mask) compile with NVRTC
+into cubins, cached in the process (the MAX_KERNELS most recently used)
+and on disk as `_build/gen-<hash>.cubin` (the hash is the source's and
+the options'; the MAX_CUBINS most recently used), with NVRTC's log,
+`ptxas -v` report included, beside each. They load and launch through
+the CUDA driver API (`cuModuleLoadData`, `cuModuleGetFunction`,
+`cuLaunchKernel` on torch's current stream); a module is unloaded when
+no cache or plan holds its kernel any more. Every NVRTC and driver call
+checks its result and raises on failure. Nothing here needs nvcc.
 """
 
 from __future__ import annotations
@@ -25,79 +20,13 @@ import glob
 import hashlib
 import os
 import re
-import shutil
-import subprocess
 import time
 import weakref
 from collections import OrderedDict
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent.parent
-CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_loaded: dict = {}
-
-
-def nvcc() -> str:
-    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found:
-        cands.append(found)
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
-
-
-def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
-
-
-def build(names) -> dict:
-    """Compile every named source that has no current library, one nvcc
-    process each, all started together. Returns {name: ptxas report}.
-    Raises with the compiler's output if any build fails."""
-    BUILD.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (out, tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (out, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        out.with_suffix(".log").write_text(log)
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {name: library_path(name).with_suffix(".log").read_text()
-            for name in names}
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The named kernel library, built on first use."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return lib
 
 
 # ---------------------------------------------------------------------------

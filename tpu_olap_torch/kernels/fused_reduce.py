@@ -25,10 +25,6 @@ streams that are precomputed once per table (remap and timeFormat
 dimension ids, bucket ids, columnComparison translations) instead of
 recomputing them.
 
-`csrc/fused_reduce.cu` is the first version of the kernel: one nvcc
-build that interprets any row program per row. It stays only as the A/B
-baseline (`fused_reduce_interp`); the main path never launches it.
-
 B1's byte planes, bf16 one-hot matmul, chunked int32 accumulators, f64
 half-sum recombination, bias shift and lane factorization exist only
 because the TPU's matrix unit has no wide integer product. They are not
@@ -41,13 +37,10 @@ generated kernel or raises (a failed compile or launch is never caught);
 on CPU tensors it runs `fused_reduce_ref`, the plain torch version (the
 program through `rowprog.evaluate`, then `index_add_` /
 `scatter_reduce_` in int64 over the selected rows). `launches` counts
-launches of the generated kernel, `interp_launches` those of the
-interpreter.
+launches of the generated kernel.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -64,7 +57,6 @@ INT64_LIMIT = 1 << 63               # sums accumulate exactly below this
 GROUP_CAP = 65536                   # the JAX package's factorized cap
 
 launches = 0                        # generated-kernel launches
-interp_launches = 0                 # interpreter launches (A/B baseline)
 
 
 def expr_int_bounds(expr, col_bounds):
@@ -323,16 +315,6 @@ def fused_reduce(prog, inputs, valid, seg_mask, K):
     return _launch_gen(prog, inputs, valid, seg_mask, K)
 
 
-def fused_reduce_interp(prog, inputs, valid, seg_mask, K):
-    """The same function through the interpreter kernel
-    (csrc/fused_reduce.cu): CUDA tensors only. The A/B baseline of the
-    generated kernel; the main path never calls it."""
-    _check(prog, inputs, valid, seg_mask, K)
-    if valid.device.type != "cuda":
-        raise ValueError("the interpreter kernel runs on cuda tensors only")
-    return _launch(prog, inputs, valid, seg_mask, K)
-
-
 def fused_reduce_ref(prog, inputs, valid, seg_mask, K):
     """The plain torch version of the kernel: the row program through
     rowprog.evaluate, then index_add_ and scatter_reduce_(amin) in int64
@@ -357,62 +339,6 @@ def fused_reduce_ref(prog, inputs, valid, seg_mask, K):
             mins[:, c - n_sum].scatter_reduce_(0, k, v.to(torch.int32)
                                                .to(torch.int64), "amin")
     return sums, mins.to(torch.int32)
-
-
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-
-
-def _library():
-    from tpu_olap_torch.kernels import cuda_build
-    lib = cuda_build.load("fused_reduce")
-    if lib.fused_reduce_launch.argtypes is None:
-        lib.fused_reduce_launch.argtypes = _ARGTYPES
-        lib.fused_reduce_launch.restype = ctypes.c_int
-        lib.fused_reduce_error_string.argtypes = [ctypes.c_int]
-        lib.fused_reduce_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _launch(prog, inputs, valid, seg_mask, K):
-    global interp_launches
-    dev = valid.device
-    n_sum, C = prog.n_sum, prog.n_cols
-    sums = torch.zeros((K, n_sum), dtype=torch.int64, device=dev)
-    mins = torch.full((K, C - n_sum), MAX_VALUE, dtype=torch.int32,
-                      device=dev)
-    n = valid.numel()
-    if n == 0:
-        return sums, mins
-    lib = _library()
-    ins, data = prog.on(dev)
-    n_slots = len(prog.slots)
-    ptrs = (ctypes.c_ulonglong * n_slots)(
-        *[0 if t is None else t.data_ptr() for t in inputs])
-    # a slot of another dtype (a DOUBLE column the program never loads:
-    # the trace refuses to) gets no type code
-    types = (ctypes.c_int * n_slots)(
-        *[rowprog.SLOT_TYPES.index(dt) if dt in rowprog.SLOT_TYPES else -1
-          for _, _, dt in prog.slots])
-    vregs = (ctypes.c_int * C)(*prog.val_regs)
-    sregs = (ctypes.c_int * C)(*prog.sel_regs)
-    with torch.cuda.device(dev):
-        err = lib.fused_reduce_launch(
-            ptrs, types, n_slots, valid.data_ptr(), seg_mask.data_ptr(),
-            n, valid.shape[1], ins.data_ptr(), ins.shape[0], prog.n_pro,
-            data.data_ptr(), prog.key_reg, vregs, sregs, C, n_sum, K,
-            sums.data_ptr(), mins.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"fused_reduce kernel launch failed: CUDA error {err} "
-            f"({lib.fused_reduce_error_string(err).decode()})")
-    interp_launches += 1
-    return sums, mins
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +373,7 @@ def _launch_gen(prog, inputs, valid, seg_mask, K):
     if valid.numel() == 0:
         return sums, mins
     kern = compiled(prog, K, dev)
-    _, data = prog.on(dev)
+    data = prog.data_on(dev)
     S, R = valid.shape
     tile = rowgen.THREADS * rowgen.ROWS_PER_THREAD
     tiles_per_seg = -(-R // tile)

@@ -2,8 +2,8 @@
 straight-line C++ and spliced into the kernel template
 `csrc/fused_reduce_gen.cuh`.
 
-Everything the interpreter (`csrc/fused_reduce.cu`) looks up per row is
-known once the plan is traced: opcodes, widths, slot types, table
+Everything a generic evaluator would look up per row is known once the
+plan is traced: opcodes, widths, slot types, table
 offsets, K and the reduce columns. So each instruction becomes one
 `const` C local (one per program value: registers are SSA-renamed), a
 LOAD is a typed read, EXITZ is an early `return false`, GATHER / SEARCH
@@ -43,7 +43,7 @@ same:
     `int` (a sign-extended value is nonzero exactly when its low 32 bits
     are; this does not hold for ADD, SUB, MUL or NEG);
   - comparisons, MIN, MAX and SELECT when every source is an `int`.
-Everything else is computed in 64 bits, as the interpreter does.
+Everything else is computed in 64 bits.
 
 The row section (`row_source`) compiles with a host C++ compiler too:
 its functions carry the ROWGEN_FN qualifier macro, `__device__` under
@@ -61,8 +61,10 @@ import torch
 
 from tpu_olap_torch.kernels import rowprog as rp
 
-TEMPLATE = Path(__file__).resolve().parent.parent / "csrc" / \
-    "fused_reduce_gen.cuh"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+TEMPLATE = CSRC / "fused_reduce_gen.cuh"
+COMMON = CSRC / "row_common.cuh"   # helpers every row kernel template uses
+COMMON_SPLICE = "//@@ROW_COMMON@@"
 SPLICE = "//@@ROWGEN_PLAN@@"
 NAMESPACE = "rowgen_plan"      # the template's name for the plan's code
 KERNEL = "fused_reduce_gen"
@@ -342,8 +344,8 @@ def _generate(prog: rp.RowProgram, namespace: str) -> tuple:
     source = (
         PRELUDE + f"namespace {namespace} {{\n"
         f"constexpr int kCols = {prog.n_cols};\n"
-        "struct RowOut { long long key; long long val[kCols]; "
-        "bool sel[kCols]; };\n"
+        "struct RowOut { long long key; long long val[kCols > 0 ? kCols : 1];"
+        " bool sel[kCols > 0 ? kCols : 1]; };\n"
         "ROWGEN_FN bool row(const void* const* __restrict__ slot, "
         "const long long* __restrict__ data, "
         "const long long* __restrict__ k, long long i"
@@ -396,25 +398,14 @@ def table_bytes(prog: rp.RowProgram, K: int) -> int:
     return b if b <= SMEM_TABLE_BYTES else 0
 
 
-def _device_source(prog: rp.RowProgram, K: int) -> str:
-    """The plan's glue for the template: its shape as constants, the
-    cone's vector loads, the row function's two call forms, and the
-    per-column reduce steps with literal table indexes. One group
-    (K = 1) reduces in registers and warp shuffles."""
-    lay = layout(prog)
+def call_source(prog: rp.RowProgram) -> list:
+    """The lines, inside the plan's namespace, that call the row
+    function from a kernel template: the `Cone` of staged vectors and
+    `cone_load` (16 rows of every cone stream, 16 bytes at a time),
+    `row_vec` (row r of the staged rows) and `row_scalar` (row i read
+    from its streams)."""
     cone = cone_slots(prog)
-    n_min = prog.n_cols - prog.n_sum
-    shared = table_bytes(prog, K) > 0
-    one_group = K == 1
-    L = [f"namespace {NAMESPACE} {{",
-         f"constexpr long long kGroups = {K};",
-         f"constexpr int kSum = {prog.n_sum};",
-         f"constexpr int kMin = {n_min};",
-         f"constexpr int kN64 = {lay.n64};",
-         f"constexpr int kN32 = {lay.n32};",
-         f"constexpr int kNMin = {lay.nmin};",
-         f"constexpr bool kShared = {'true' if shared else 'false'};",
-         f"constexpr bool kOneGroup = {'true' if one_group else 'false'};"]
+    L = []
     words = {s: ROWS_PER_THREAD * torch.empty(0, dtype=prog.slots[s][2])
              .element_size() // 16 for s in cone}
     L.append("struct Cone { " + " ".join(
@@ -437,6 +428,28 @@ def _device_source(prog: rp.RowProgram, K: int) -> str:
              "const long long* data, const long long* k, long long i, "
              "RowOut& o) {\n"
              f"  return row(slot, data, k, i{sc_args}, o);\n}}")
+    return L
+
+
+def _device_source(prog: rp.RowProgram, K: int) -> str:
+    """The plan's glue for the fused-reduce template: its shape as
+    constants, the calls of the row function (`call_source`), and the
+    per-column reduce steps with literal table indexes. One group
+    (K = 1) reduces in registers and warp shuffles."""
+    lay = layout(prog)
+    n_min = prog.n_cols - prog.n_sum
+    shared = table_bytes(prog, K) > 0
+    one_group = K == 1
+    L = [f"namespace {NAMESPACE} {{",
+         f"constexpr long long kGroups = {K};",
+         f"constexpr int kSum = {prog.n_sum};",
+         f"constexpr int kMin = {n_min};",
+         f"constexpr int kN64 = {lay.n64};",
+         f"constexpr int kN32 = {lay.n32};",
+         f"constexpr int kNMin = {lay.nmin};",
+         f"constexpr bool kShared = {'true' if shared else 'false'};",
+         f"constexpr bool kOneGroup = {'true' if one_group else 'false'};"]
+    L += call_source(prog)
     # K == 1: per-thread accumulators, reduced across the warp at the end
     L.append("struct Acc { unsigned long long s[kN64 > 0 ? kN64 : 1]; "
              "unsigned n[kN32 > 0 ? kN32 : 1]; "
@@ -514,15 +527,22 @@ def _device_source(prog: rp.RowProgram, K: int) -> str:
     return "\n".join(L) + "\n"
 
 
+def splice(template: Path, plan_source: str) -> str:
+    """A kernel template with the shared helpers (`COMMON`) and one
+    plan's code spliced in at its marks."""
+    text = template.read_text()
+    for mark in (COMMON_SPLICE, SPLICE):
+        if mark not in text:
+            raise RuntimeError(f"{template} lacks the splice mark {mark}")
+    return text.replace(COMMON_SPLICE, COMMON.read_text()) \
+        .replace(SPLICE, plan_source)
+
+
 def kernel_source(prog: rp.RowProgram, K: int) -> str:
-    """The whole NVRTC source of the plan's kernel: the template with the
-    row function and its glue spliced in. It holds none of the query's
-    literals (see `constants`)."""
-    template = TEMPLATE.read_text()
-    if SPLICE not in template:
-        raise RuntimeError(f"{TEMPLATE} lacks the splice mark {SPLICE}")
-    plan = row_source(prog) + _device_source(prog, K)
-    return template.replace(SPLICE, plan)
+    """The whole NVRTC source of the plan's fused-reduce kernel: the
+    template with the row function and its glue spliced in. It holds
+    none of the query's literals (see `constants`)."""
+    return splice(TEMPLATE, row_source(prog) + _device_source(prog, K))
 
 
 class Params(ctypes.Structure):

@@ -3,13 +3,14 @@
 The fused reduce (kernels.fused_reduce) does in one CUDA kernel what the
 TPU kernel B1 does in one Pallas body: AND the masks, evaluate the filter
 and the integer virtual columns, compute the dimension ids and the
-mixed-radix group key, and reduce per group. Filters and expressions are
+mixed-radix group key, and reduce per group; the row-mask kernel
+(kernels.row_mask) computes a scan's row mask the same way. Filters and expressions are
 query-specific Python closures over torch tensors (kernels.filtereval,
 kernels.exprs, executor.dimplan, kernels.timebucket); a fixed CUDA
 source cannot call them. So the front half is traced once per plan into
 a row program, a straight-line list of integer instructions over a small
-register file, which the kernel interprets for every row and
-`evaluate` runs with torch ops (the kernel's plain version).
+register file, which kernels.rowgen writes out as the kernel's CUDA and
+`evaluate` runs with torch ops (the kernels' plain version).
 
 Tracing runs the SAME closures the generic reduce runs, on `_Sym`
 tensors: a torch.Tensor subclass whose `__torch_function__` executes
@@ -21,8 +22,8 @@ read by the closures (ConstPool scalars, dictionary lookup tables, IN
 lists, bucket boundaries) are baked into the program: scalars as
 immediates, vectors as tables read by GATHER / ISIN / SEARCH.
 
-What does not fit raises RowProgramError, and the plan keeps the generic
-reduce: floating-point row values, ops outside the table below,
+What does not fit raises RowProgramError, and the plan keeps its torch
+version: floating-point row values, ops outside the table below,
 value-dependent Python control flow, more than MAX_REGS live values.
 
 Semantics the kernel and `evaluate` share where torch would raise:
@@ -38,16 +39,16 @@ import numpy as np
 import torch
 
 ROWS = 4099                 # dummy row count of a trace
-MAX_REGS = 48               # the kernel's per-thread register file
-MAX_INS = 512               # the kernel's shared-memory program buffer
+MAX_REGS = 48               # live values of one row program
+MAX_INS = 512               # instructions of one row program
 MAX_SLOTS = 32              # input streams one launch takes
 MAX_COLUMNS = 64            # reduce columns one launch takes
 
-# opcodes (mirrored in csrc/fused_reduce.cu)
+# opcodes (their C forms: kernels.rowgen._instruction)
 (LOAD, IMM, EXITZ, ADD, SUB, MUL, NEG, FDIV, TDIV, REM, ABS, MIN, MAX,
  EQ, NE, LT, LE, GT, GE, AND, OR, XOR, BNOT, LNOT, SELECT, CAST, GATHER,
  SEARCHR, SEARCHL, ISIN) = range(30)
-# result widths (mirrored in csrc/fused_reduce.cu)
+# result widths
 W64, W32, W16, W8, WU8, WBOOL = range(6)
 
 _RANGE = {W64: (-(1 << 63), (1 << 63) - 1), W32: (-(1 << 31), (1 << 31) - 1),
@@ -55,7 +56,7 @@ _RANGE = {W64: (-(1 << 63), (1 << 63) - 1), W32: (-(1 << 31), (1 << 31) - 1),
           WBOOL: (0, 1)}
 _WIDTH = {torch.int64: W64, torch.int32: W32, torch.int16: W16,
           torch.int8: W8, torch.uint8: WU8, torch.bool: WBOOL}
-# slot dtypes the kernel loads, by code (mirrored in the CUDA source)
+# slot dtypes a program loads
 SLOT_TYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
               torch.bool)
 
@@ -127,25 +128,15 @@ class RowProgram:
         """Index of the EXITZ instruction (the mask cone ends there)."""
         return int(np.nonzero(self.ins[:, 0] == EXITZ)[0][0])
 
-    def packed(self) -> np.ndarray:
-        """The instructions as the kernel reads them: int32 [n, 4] of
-        (op | width << 8 | dst << 16, a, b, c), one 16-byte load each."""
-        ins = self.ins.astype(np.int64)
-        head = ins[:, 0] | (ins[:, 1] << 8) | ((ins[:, 2] & 0xffff) << 16)
-        return np.stack([head.astype(np.uint32).view(np.int32),
-                         *ins[:, 3:].T.astype(np.int32)], 1)
-
-    def on(self, device) -> tuple:
-        """(packed instructions, data) as tensors on `device`, uploaded
-        once."""
+    def data_on(self, device) -> torch.Tensor:
+        """The program's immediates and tables (`data`) as an int64
+        tensor on `device`, uploaded once."""
         dev = torch.device(device)
         hit = self._device.get(dev)
         if hit is None:
             data = self.data if self.data.size else np.zeros(1, np.int64)
-            hit = self._device[dev] = (
-                torch.from_numpy(np.ascontiguousarray(self.packed()))
-                .to(dev),
-                torch.from_numpy(np.ascontiguousarray(data)).to(dev))
+            hit = self._device[dev] = torch.from_numpy(
+                np.ascontiguousarray(data)).to(dev)
         return hit
 
 
@@ -223,7 +214,8 @@ def trace(row_fn, slots) -> RowProgram:
     inside). row_fn(streams) gets one traced tensor per slot (a list,
     in slot order) and returns (mask, key, sums, mins): sums and mins
     are sequences of (value or None, selection or None) columns — a
-    None value is a count (sums only).
+    None value is a count (sums only). A row mask alone (kernels.row_mask)
+    has no columns and a constant key.
     """
     streams = [input_stream(i, dt) for i, (_, _, dt) in enumerate(slots)]
     try:
@@ -493,8 +485,8 @@ class _Compiler:
 
     def compile(self, mask, key, cols, n_sum) -> RowProgram:
         cols = list(cols)
-        if not 1 <= len(cols) <= MAX_COLUMNS:
-            raise RowProgramError(f"{len(cols)} reduce columns (1.."
+        if len(cols) > MAX_COLUMNS:
+            raise RowProgramError(f"{len(cols)} reduce columns (at most "
                                   f"{MAX_COLUMNS})")
         if not 0 <= n_sum <= len(cols) or any(
                 v is None for v, _ in cols[n_sum:]):
