@@ -24,7 +24,7 @@ from tpu_olap.planner.fallback import FallbackError
 from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity, ssb
 from tpu_olap_torch.kernels.sparse_groupby import SENTINEL
-from tpu_olap_torch.planner import FallbackNotPorted
+from tpu_olap_torch.planner.fallback import FallbackError as PortFallbackError
 
 from _torch_port import sql_literals as sql_of
 from test_theta_setops import _setop, _theta
@@ -175,12 +175,13 @@ def _same_answer(jeng, peng, sql):
         want = jeng.sql(sql)
     except FallbackError:  # refused by the JAX planner and its fallback
         want = None
-    if want is None or not jeng.last_plan.rewritten:
-        # the JAX engine handed it to its fallback interpreter
-        with pytest.raises(FallbackNotPorted):
+    if want is None:
+        # the JAX fallback refuses it: so does the port's
+        with pytest.raises(PortFallbackError):
             peng.sql(sql)
         return
     got = peng.sql(sql)
+    assert peng.last_plan.rewritten == jeng.last_plan.rewritten
     ordered = "ORDER BY" in sql.upper()
     assert_frame_parity(got, want, float_rtol=EST_RTOL, ordered=ordered,
                         label=sql)
@@ -198,12 +199,21 @@ def test_jax_sparse_sql(sparse_pair, sql):
 
 
 def test_sparse_budget_raises(sparse_pair):
+    """Past sparse_group_budget the sparse route raises
+    UnsupportedAggregation, and the engine serves the query from the
+    fallback interpreter with the JAX package's reason and answer
+    (integers exact)."""
+    jeng = jax_sparse_tests._engine(sparse_group_budget=64)
     peng = Engine(device="cpu", dense_group_budget=64,
                   sparse_group_budget=64)
     peng.register_table("t", jax_sparse_tests._df(), time_column="ts",
                         block_rows=512)
-    with pytest.raises(FallbackNotPorted, match="sparse budget"):
-        peng.sql(jax_sparse_tests.SQL)
+    got = peng.sql(jax_sparse_tests.SQL)
+    want = jeng.sql(jax_sparse_tests.SQL)
+    assert peng.runner.last_metrics["route"] == "fallback"
+    assert "sparse budget" in peng.last_plan.fallback_reason
+    assert peng.last_plan.fallback_reason == jeng.last_plan.fallback_reason
+    assert_frame_parity(got, want)
 
 
 THETA_SQL = [s for _, s in sql_of(jax_theta_tests) if "FROM events" in s] \

@@ -18,7 +18,6 @@ from tpu_olap.bench import ssb as jax_ssb
 from tpu_olap.executor import EngineConfig as JaxConfig
 from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity, ssb
-from tpu_olap_torch.planner import FallbackNotPorted
 
 from _torch_port import carry_into
 from test_pallas_reduce import (COLCMP_QUERIES, MINMAX_QUERIES,
@@ -136,9 +135,15 @@ def test_execute_ir_timeseries_matches_jax(t_engines, granularity,
 
 
 def test_unrewritten_statement_raises(t_engines):
+    """A statement the planner does not rewrite (a UNION) is served by
+    the fallback interpreter, equal to the JAX package's answer."""
+    sql = "SELECT color FROM t UNION SELECT region FROM t"
     port = t_engines[("port", "auto")]
-    with pytest.raises(FallbackNotPorted, match="not yet ported"):
-        port.sql("SELECT color FROM t UNION SELECT region FROM t")
+    got = port.sql(sql)
+    assert not port.last_plan.rewritten
+    assert port.runner.last_metrics["route"] == "fallback"
+    want = t_engines[("jax", "never")].sql(sql)
+    assert_frame_parity(got, want)
 
 
 def test_cuda_engine_without_card_raises():

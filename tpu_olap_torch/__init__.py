@@ -9,7 +9,10 @@ columnar segments (`segments`) kept resident on the card
 CUDA kernel for Hopper generated per plan (`kernels.fused_reduce`,
 `kernels.rowprog`, `kernels.rowgen`, `csrc/fused_reduce_gen.cuh`); a
 scan's row mask runs in a generated kernel of its own
-(`kernels.row_mask`, `csrc/row_mask_gen.cuh`).
+(`kernels.row_mask`, `csrc/row_mask_gen.cuh`). Statements the planner
+does not rewrite run in the pandas fallback interpreter
+(`planner.fallback`); parquet datasets stream into segments row group
+by row group (`segments.ingest`).
 
 The package imports torch and never JAX. Entry points run on ``cuda``
 unless the caller asks for the CPU (``EngineConfig(device="cpu")``); on

@@ -1,16 +1,22 @@
 """Engine — the API surface (SURVEY.md §3.1): table registration (the
-DefaultSource OPTIONS analog), the SQL entry point, the raw-IR
-passthrough, paged Select, EXPLAIN and the statement verbs of the
-reference's extended parser (`CLEAR DRUID CACHE`, `EXPLAIN DRUID
-REWRITE`, `ON DRUID DATASOURCE … EXECUTE QUERY`, `SEARCH DRUID
+DefaultSource OPTIONS analog) from pandas, Arrow or parquet, the SQL entry
+point, the raw-IR passthrough, paged Select, EXPLAIN and the statement
+verbs of the reference's extended parser (`CLEAR DRUID CACHE`, `EXPLAIN
+DRUID REWRITE`, `ON DRUID DATASOURCE … EXECUTE QUERY`, `SEARCH DRUID
 DATASOURCE`).
 
-Statements the planner rewrites run on the device path. A statement it
-does not rewrite needs the pandas fallback interpreter, which is not
-ported yet: it raises `FallbackNotPorted`; so do the verbs of subsystems
-not ported yet (cube DDL, INSERT, COMPACT, CHECKPOINT, EXPLAIN ANALYZE:
-`NotYetPorted`, naming the ROADMAP item). A failure on the card
-propagates — nothing reroutes a query off the device.
+Statements the planner rewrites run on the device path. The pandas
+fallback interpreter (`planner.fallback`) serves a statement in three
+cases only, all decided by the statement's shape: the planner did not
+rewrite it, its table is plain (`accelerate=False`), or lowering raised
+one of the four `Unsupported*` types. Every other failure on the device
+path — an NVRTC compile error, a launch or CUDA error, anything else
+`runner.execute` raises — propagates to the caller: nothing reroutes a
+query off the device. Each fallback answer records its reason in
+`last_plan.fallback_reason` and `runner.last_metrics["route"] ==
+"fallback"`. Verbs of subsystems not ported yet (cube DDL, INSERT,
+COMPACT, CHECKPOINT, EXPLAIN ANALYZE) raise `NotYetPorted`, naming the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,20 +25,31 @@ import dataclasses
 import json
 import re
 
+import numpy as np
 import pandas as pd
 
 from tpu_olap_torch.catalog import Catalog, StarSchema, TableEntry
 from tpu_olap_torch.executor.config import EngineConfig
+from tpu_olap_torch.executor.dimplan import UnsupportedDimension
 from tpu_olap_torch.executor.runner import QueryResult, QueryRunner
 from tpu_olap_torch.ir.query import (SearchQueryContains, SearchQuerySpec,
                                      SelectQuerySpec)
 from tpu_olap_torch.ir.serde import query_from_json
-from tpu_olap_torch.planner import DruidPlanner, FallbackNotPorted
+from tpu_olap_torch.kernels.filtereval import UnsupportedFilter
+from tpu_olap_torch.kernels.groupby import UnsupportedAggregation
+from tpu_olap_torch.kernels.timebucket import UnsupportedGranularity
+from tpu_olap_torch.planner import DruidPlanner
+from tpu_olap_torch.planner.fallback import execute_fallback
+from tpu_olap_torch.segments.ingest import (DEFAULT_BLOCK_ROWS, ingest_arrow,
+                                            ingest_parquet_stream)
+
+# the lowering refusals that send a statement to the fallback interpreter
+_UNSUPPORTED = (UnsupportedAggregation, UnsupportedFilter,
+                UnsupportedGranularity, UnsupportedDimension)
 
 
 class NotYetPorted(NotImplementedError):
     """A statement verb of a subsystem the port does not have yet."""
-from tpu_olap_torch.segments.ingest import DEFAULT_BLOCK_ROWS, ingest_arrow
 
 
 class Engine:
@@ -47,17 +64,40 @@ class Engine:
         self.runner = QueryRunner(self.config)
         self.planner = DruidPlanner(self.catalog, self.config)
         self.last_plan = None
+        # the runner metrics of the statements a statement ran inside it
+        # (inlined subqueries, derived tables); reset per Engine.sql
+        self._nested: list = []
+        # planner-initiated subquery execution: uncorrelated shapes
+        # inline as literals so the outer query can push down; the inner
+        # aggregate itself rides the device path when rewritable
+        self.planner.run_subquery = self._run_stmt
+        # fallback-initiated derived-table execution: a FROM/JOIN
+        # (SELECT ...) body is usually the scan-heavy, device-eligible
+        # part of a statement the interpreter serves — route it back
+        # through the statement executor (fallback._run_inner_stmt)
+        self.catalog.device_runner = self._run_stmt
 
     # ------------------------------------------------------- registration
 
     def register_table(self, name: str, data, time_column: str | None = None,
                        star_schema=None, accelerate: bool = True,
                        block_rows: int = DEFAULT_BLOCK_ROWS,
+                       column_map: dict | None = None, columns=None,
                        time_partition="auto", segments=None, **options):
-        """Register a datasource from a pandas DataFrame. accelerate=False
-        registers a plain (dimension) table — the reference's
-        non-druid-backed relation, served only by the fallback
-        interpreter (not ported yet).
+        """Register a datasource. `data`: pandas DataFrame, pyarrow Table,
+        parquet path, or a list of parquet paths (a multi-file dataset).
+        accelerate=False registers a plain (dimension) table served only
+        by the fallback interpreter — the reference's non-druid-backed
+        relation.
+
+        Parquet inputs stream row-group batches into segments under
+        bounded host memory (segments.ingest.ingest_parquet_stream); the
+        fallback DataFrame materializes lazily on first fallback use, and
+        a table past `fallback_chunk_rows` rows never materializes it: the
+        fallback streams its row groups. `columns` optionally prunes the
+        ingested column set — always POST-rename names (after
+        column_map), for every input type; parquet reads skip pruned
+        columns entirely.
 
         `segments` registers an already-built TableSegments instead of
         ingesting `data` (segments.carry builds one from another
@@ -72,19 +112,72 @@ class Engine:
             raise ValueError("register_table needs data or segments")
         if not accelerate:
             segments = None
-        elif segments is None:
-            import pyarrow as pa
-            segments = ingest_arrow(
-                name, pa.Table.from_pandas(data, preserve_index=False),
-                time_column, block_rows, time_partition=time_partition)
+        column_map = dict(column_map) if column_map else None
+        if column_map and time_column in column_map:
+            time_column = column_map[time_column]
+        table = None
+        pq_fields = {}
+        if isinstance(data, str) or (
+                isinstance(data, (list, tuple)) and data
+                and all(isinstance(p, str) for p in data)):
+            import pyarrow.parquet as pq
+            paths = [data] if isinstance(data, str) else list(data)
+            inverse = {v: k for k, v in (column_map or {}).items()}
+            read_cols = [inverse.get(c, c) for c in columns] \
+                if columns else None
+
+            def load_frame(_paths=tuple(paths), _cols=read_cols):
+                f = pd.concat(
+                    [pq.read_table(p, columns=_cols).to_pandas()
+                     for p in _paths], ignore_index=True)
+                return f.rename(columns=column_map) if column_map else f
+
+            if accelerate and segments is None:
+                segments = ingest_parquet_stream(
+                    name, paths, time_column, block_rows,
+                    columns=columns, column_map=column_map,
+                    time_partition=time_partition)
+            frame_source = load_frame
+            pq_fields = dict(
+                parquet_paths=tuple(paths),
+                parquet_read_cols=tuple(read_cols) if read_cols else None,
+                parquet_column_map=column_map,
+                parquet_rows=sum(pq.ParquetFile(p).metadata.num_rows
+                                 for p in paths))
+        elif data is None or isinstance(data, pd.DataFrame):
+            frame = data
+            if frame is not None:
+                if column_map:
+                    frame = frame.rename(columns=column_map)
+                if columns:
+                    frame = frame[list(columns)]
+                if accelerate and segments is None:
+                    import pyarrow as pa
+                    table = pa.Table.from_pandas(frame, preserve_index=False)
+            frame_source = frame
+        else:  # pyarrow table
+            table = data
+            if column_map:
+                table = table.rename_columns(
+                    [column_map.get(c, c) for c in table.schema.names])
+            if columns:
+                table = table.select(list(columns))
+
+            def frame_source(_t=table):
+                return _t.to_pandas()
+
+        if accelerate and segments is None:
+            segments = ingest_arrow(name, table, time_column, block_rows,
+                                    time_partition=time_partition)
         star = star_schema
         if isinstance(star, dict):
             star = StarSchema.from_json(star)
         if segments is not None:
             segments.star = star  # FD-aware dim-domain restriction
         entry = TableEntry(name=name, segments=segments,
-                           frame_source=data, time_column=time_column,
-                           star=star, options=dict(options))
+                           frame_source=frame_source,
+                           time_column=time_column, star=star,
+                           options=dict(options), **pq_fields)
         self.catalog.register(entry)
         self.runner.clear_cache(name)
         return entry
@@ -92,7 +185,11 @@ class Engine:
     # ---------------------------------------------------------------- SQL
 
     def sql(self, query: str) -> pd.DataFrame:
-        """Plan, execute on the device path, and return a DataFrame.
+        """Plan, execute on the device path or in the fallback
+        interpreter, and return a DataFrame. `runner.last_metrics` then
+        says which route served the statement ("fallback" for the
+        interpreter, "grouping_sets" for a union of device legs), and
+        "nested" lists the metrics of the statements it ran inside it.
 
         Statement verbs beyond SELECT (SURVEY.md §3.1): `CLEAR DRUID
         CACHE [table]`, `EXPLAIN DRUID REWRITE <sql>`, `ON DRUID
@@ -101,21 +198,114 @@ class Engine:
         verb = _match_verb(query)
         if verb is not None:
             return verb(self)
+        self._nested = []
         plan = self.planner.plan(query)
         self.last_plan = plan
-        return self._execute_plan(plan)
+        out = self._execute_plan(plan)
+        if self._nested:
+            self.runner.last_metrics["nested"] = self._nested
+        return out
 
     def _execute_plan(self, plan) -> pd.DataFrame:
-        if not plan.rewritten:
-            raise FallbackNotPorted(
-                f"not yet ported: fallback interpreter "
-                f"({plan.fallback_reason})")
-        if not plan.entry.is_accelerated:
-            raise FallbackNotPorted(
-                f"not yet ported: fallback interpreter (table "
-                f"{plan.entry.name!r} is not accelerated)")
-        res = self.runner.execute(plan.query, plan.entry.segments)
-        return self._frame_from(plan, res)
+        if getattr(plan.stmt, "grouping_sets", None) is not None \
+                and not plan.rewritten:
+            out = self._try_grouping_sets_union(plan)
+            if out is not None:
+                return out
+        if plan.rewritten:
+            try:
+                res = self.runner.execute(plan.query, plan.entry.segments)
+            except _UNSUPPORTED as e:
+                # a shape lowering refuses (e.g. a sparse GroupBy past
+                # sparse_group_budget): the interpreter serves it. Any
+                # other failure propagates.
+                plan.query = None
+                plan.fallback_reason = f"lowering failed: {e}"
+            else:
+                return self._frame_from(plan, res)
+        return self._execute_fallback(plan)
+
+    def _execute_fallback(self, plan) -> pd.DataFrame:
+        """The pandas interpreter over the whole statement; its runner
+        metrics name the route and the reason."""
+        out = execute_fallback(plan.stmt, self.catalog, self.config)
+        self.runner.last_metrics = {
+            "route": "fallback", "host_copies": 0,
+            "fallback_reason": plan.fallback_reason}
+        return out
+
+    def _try_grouping_sets_union(self, plan):
+        """GROUPING SETS/ROLLUP/CUBE on the device path: a union of
+        per-set GROUP BY dispatches — each leg differs only in its
+        dimension list, so the legs share their plain GROUP BY twins'
+        kernels. Absent group keys / GROUPING() markers are reattached
+        as constant columns after each leg runs. Returns None when the
+        shape cannot be unioned (SELECT *; ORDER BY not on an output
+        column; a derived or plain source) — the caller then takes the
+        whole-statement fallback."""
+        from tpu_olap_torch.planner.fallback import (FallbackError,
+                                                     _sort_order_items,
+                                                     grouping_set_legs,
+                                                     union_order_keys)
+        stmt = plan.stmt
+        # only worth decomposing when the legs can ride the device path:
+        # an unaccelerated or derived source would re-run the scan/join
+        # once per set where the whole-statement fallback filters once
+        # (and gating here keeps that fallback an independent oracle for
+        # the union path in tests)
+        if stmt.derived is not None or stmt.grouping_sets == []:
+            return None
+        entry = self.catalog.maybe(stmt.table)
+        if entry is None or not entry.is_accelerated:
+            return None
+        try:
+            out_names, legs = grouping_set_legs(stmt)
+        except FallbackError:
+            return None
+        order_keys = union_order_keys(stmt, out_names) \
+            if stmt.order_by else []
+        if order_keys is None:
+            return None  # union ORDER BY must name output columns
+        frames, leg_plans, leg_metrics = [], [], []
+        for leg_stmt, consts in legs:
+            lp = self.planner.plan_stmt(leg_stmt)
+            leg_plans.append(lp)
+            f = self._execute_plan(lp)
+            leg_metrics.append(self.runner.last_metrics)
+            for name, val in consts.items():
+                # absent group keys reattach as np.nan (float64 NULL),
+                # matching the whole-statement fallback's dtype — a bare
+                # None would make an object column that breaks numeric
+                # comparisons/sorts over the union
+                f[name] = np.nan if val is None else val
+            frames.append(f.loc[:, out_names])
+        plan.grouping_legs = leg_plans
+        n_dev = sum(1 for lp in leg_plans if lp.rewritten)
+        plan.fallback_reason = (
+            None if n_dev == len(leg_plans) else
+            f"grouping-sets union: {n_dev}/{len(leg_plans)} legs "
+            "device-rewritten")
+        out = pd.concat(frames, ignore_index=True) if frames else \
+            pd.DataFrame(columns=out_names)
+        if order_keys:
+            out = _sort_order_items(out, order_keys, stmt.order_by)
+        lo = stmt.offset
+        hi = None if stmt.limit is None else lo + stmt.limit
+        self.runner.last_metrics = {
+            "route": "grouping_sets",
+            "host_copies": sum(m.get("host_copies", 0)
+                               for m in leg_metrics),
+            "legs": leg_metrics}
+        return out.iloc[lo:hi].reset_index(drop=True)
+
+    def _run_stmt(self, stmt) -> pd.DataFrame:
+        """Execute one parsed statement end to end (device path when
+        rewritable, else the fallback) — the planner's subquery executor
+        and the fallback's derived-table executor. Does not touch
+        last_plan: the user-visible plan is the outer statement's."""
+        out = self._execute_plan(self.planner.plan_stmt(stmt))
+        self._nested.append(self.runner.last_metrics)
+        return out
 
     def _frame_from(self, plan, res: QueryResult) -> pd.DataFrame:
         cols = {}

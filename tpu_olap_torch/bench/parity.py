@@ -1,12 +1,10 @@
-"""Result-parity harness: compare two result frames of the same SQL.
+"""Result-parity harness: device path vs pandas fallback on the same SQL.
 
 The direct analog of the reference's live-Druid parity tests (SURVEY.md §5:
 druid-path results vs fallback-path results on identical data) and of the
-"result parity" metric (BASELINE.json:2). This package keeps only the
-frame comparison (the pandas fallback interpreter is not ported yet):
-the chip smoke holds the fused kernel path against the generic torch
-reduce, and the tests hold the port against the JAX package. Tolerance
-rules per query class (SURVEY.md §8.4 #2): exact for integers/strings/row sets,
+"result parity" metric (BASELINE.json:2). The tests also hold the port
+against the JAX package with the same frame comparison. Tolerance rules
+per query class (SURVEY.md §8.4 #2): exact for integers/strings/row sets,
 relative float tolerance for float accumulations (summation order differs
 between device reductions and pandas), and a wide relative band for
 HLL/theta approximate count-distinct columns.
@@ -16,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import pandas as pd
+
+from tpu_olap_torch.planner.fallback import execute_fallback
 
 
 class ParityError(AssertionError):
@@ -30,6 +30,30 @@ def _f64(s: pd.Series) -> np.ndarray:
         return np.asarray([np.nan if pd.isna(v) else float(v) for v in s],
                           dtype=np.float64)
     return s.to_numpy(dtype=np.float64)
+
+
+def pure_config(config):
+    """The oracle-side config: derived-table bodies stay on the pandas
+    interpreter so the fallback is an INDEPENDENT execution — never a
+    re-run of the device path it is checking."""
+    import dataclasses
+    if not getattr(config, "fallback_derived_on_device", False):
+        return config
+    return dataclasses.replace(config, fallback_derived_on_device=False)
+
+
+def run_both(engine, sql: str):
+    """Execute `sql` on the accelerated path AND the fallback interpreter.
+    Returns (device_df, fallback_df, plan). Raises if the planner did not
+    rewrite (use engine.sql alone for fallback-only shapes)."""
+    device = engine.sql(sql)
+    plan = engine.last_plan
+    if not plan.rewritten:
+        raise ParityError(
+            f"query did not stay on the device path: {plan.fallback_reason}")
+    fb = execute_fallback(plan.stmt, engine.catalog,
+                          pure_config(engine.config))
+    return device, fb, plan
 
 
 def assert_frame_parity(a: pd.DataFrame, b: pd.DataFrame,
@@ -113,3 +137,11 @@ def assert_frame_parity(a: pd.DataFrame, b: pd.DataFrame,
                     f"{tag}column {c!r} mismatch at row {i}: "
                     f"{va!r} vs {vb!r}")
 
+
+def check_query(engine, sql: str, approx_cols: tuple = (),
+                ordered: bool = False, label: str = "", **tol):
+    """run_both + assert_frame_parity in one call; returns the device frame."""
+    device, fb, _ = run_both(engine, sql)
+    assert_frame_parity(device, fb, approx_cols=approx_cols,
+                        ordered=ordered, label=label, **tol)
+    return device

@@ -160,6 +160,89 @@ def _gen_lineorder(rng, n: int, n_cust: int, n_supp: int, n_part: int,
     })
 
 
+# writer processes of write_ssb_parquet at most: each holds one chunk of
+# chunk_rows denormalized rows in host memory
+MAX_WRITERS = 8
+
+
+def write_ssb_parquet(out_dir: str, lineorder_rows: int, seed: int = 0,
+                      chunk_rows: int = 2_000_000,
+                      row_group_rows: int = 1 << 18) -> tuple[list, dict]:
+    """Generate the denormalized SSB fact as a multi-file parquet dataset
+    in bounded-memory chunks (the SF10/SF100 generation path — a whole
+    SF10 denormalized frame would not be polite to host RAM, and the
+    row-group structure is what ingest_parquet_stream streams over).
+    Chunks are written by up to MAX_WRITERS spawned processes, no more
+    than the host's cores or the chunks (each regenerates the dimension
+    tables once); each chunk has its own seed, so the files are those
+    one process writes.
+
+    Returns (fact parquet paths, dimension tables dict)."""
+    import os
+
+    n = lineorder_rows
+    n_chunks = -(-n // chunk_rows)
+    os.makedirs(out_dir, exist_ok=True)
+    args = (out_dir, n, seed, chunk_rows, row_group_rows)
+    workers = min(MAX_WRITERS, os.cpu_count() or 1, n_chunks)
+    if workers > 1:
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(workers,
+                                 mp_context=mp.get_context("spawn")) as ex:
+            futures = [ex.submit(_write_chunks, *args,
+                                 range(w, n_chunks, workers))
+                       for w in range(workers)]
+            paths = sorted(p for f in futures for p in f.result())
+    else:
+        paths = _write_chunks(*args, range(n_chunks))
+    dims = _gen_dimensions(np.random.default_rng(seed), *_dimension_sizes(n))
+    return paths, dims
+
+
+def _dimension_sizes(n: int) -> tuple:
+    """(customers, suppliers, parts) of a write_ssb_parquet dataset."""
+    return max(200, n // 200), max(150, n // 3000), max(500, n // 30)
+
+
+def _write_chunks(out_dir, n, seed, chunk_rows, row_group_rows, chunk_ids):
+    """Write the fact chunks `chunk_ids` of a write_ssb_parquet dataset;
+    returns their paths."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    n_cust, n_supp, n_part = _dimension_sizes(n)
+    dims = _gen_dimensions(np.random.default_rng(seed), n_cust, n_supp,
+                           n_part)
+    datekeys = dims["date"]["d_datekey"].to_numpy()
+    paths = []
+    for chunk_idx in chunk_ids:
+        start = 1 + chunk_idx * chunk_rows
+        m = min(chunk_rows, n - start + 1)
+        crng = np.random.default_rng((seed, 7919, chunk_idx))
+        fact = _gen_lineorder(crng, m, n_cust, n_supp, n_part, datekeys,
+                              start_key=start)
+        chunk = denormalize({"lineorder": fact, **dims})
+        path = os.path.join(out_dir, f"lineorder-{chunk_idx:05d}.parquet")
+        pq.write_table(pa.Table.from_pandas(chunk, preserve_index=False),
+                       path, row_group_size=row_group_rows)
+        paths.append(path)
+    return paths
+
+
+def register_ssb_parquet(engine, paths, dims: dict,
+                         block_rows: int | None = None):
+    """Register a write_ssb_parquet dataset: the fact streams row-group
+    batches into segments; dimension tables stay fallback-only."""
+    kw = {"block_rows": block_rows} if block_rows else {}
+    engine.register_table("lineorder", list(paths), time_column=TIME_COL,
+                          star_schema=star_schema(), **kw)
+    for t in ("date", "customer", "supplier", "part"):
+        engine.register_table(t, dims[t], accelerate=False)
+
+
 # dimension attributes carried onto the denormalized fact ("the Druid
 # datasource" — the reference denormalizes the star the same way, §1)
 _DENORM_COLS = {

@@ -1,8 +1,9 @@
 """Engine configuration — the knobs this package reads.
 
 A trimmed counterpart of the JAX package's EngineConfig: the host-side
-lowering budgets and planner switches keep their names and defaults; the
-device knobs are `device` and `use_fused_reduce`.
+lowering budgets, planner switches and fallback-interpreter bounds keep
+their names and defaults; the device knobs are `device` and
+`use_fused_reduce`.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ class EngineConfig:
 
     # sparse group-by: first compact-table size (grows to the next power
     # of two on overflow) and the most PRESENT groups it serves; past it
-    # the query needs the fallback interpreter, which is not ported yet
+    # lowering raises UnsupportedAggregation and the engine serves the
+    # query from the fallback interpreter
     sparse_group_cap: int = 1 << 15
     sparse_group_budget: int = 1 << 21
     # theta sketch width on the sparse path: [cap, k] tables stay modest
@@ -62,3 +64,33 @@ class EngineConfig:
     allow_count_distinct: bool = True
     # time zone of time-function extraction in SQL
     time_zone: str = "UTC"
+
+    # fallback interpreter (planner.fallback) at scale: parquet-backed
+    # tables whose footer row count exceeds fallback_chunk_rows run the
+    # fallback over streamed row-group chunks of fallback_chunk_batch_rows
+    # (partial aggregation; bounded resident rows) instead of
+    # materializing one frame; a chunked NON-aggregate result, or a
+    # chunked DISTINCT aggregate's (group, value) pair set, larger than
+    # fallback_scan_row_cap refuses with a clear error instead of eating
+    # host memory.
+    fallback_chunk_rows: int = 4_000_000
+    fallback_chunk_batch_rows: int = 1 << 20
+    fallback_scan_row_cap: int = 20_000_000
+    # correlation shapes the magic-set rewrite cannot serve run a bounded
+    # nested loop: one subquery execution per distinct outer key tuple,
+    # refused legibly past this cap
+    corr_nested_loop_cap: int = 2048
+    # chunked-fallback aggregate parallelism (fork pool over parquet row
+    # groups; the children run pandas only, never torch or CUDA): 0 =
+    # auto (min(8, cpu count)), 1 = sequential. The timeout bounds how
+    # long a stuck pool can stall a query before the sequential loop
+    # takes over; it scales up with the table's row count
+    # (fallback._parallel_timeout_s).
+    fallback_parallel_workers: int = 0
+    fallback_parallel_timeout_s: float = 45.0
+    # FROM/JOIN (SELECT ...) bodies route back through the engine's
+    # statement executor (the device path when rewritable). False keeps
+    # the interpreter pure — bench.parity.pure_config() derives that
+    # oracle config, so the fallback side of every parity check stays an
+    # independent pandas execution.
+    fallback_derived_on_device: bool = True

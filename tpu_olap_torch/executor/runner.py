@@ -46,6 +46,7 @@ from tpu_olap_torch.ir.aggregations import CountAggregation
 from tpu_olap_torch.ir.dimensions import DefaultDimensionSpec
 from tpu_olap_torch.ir.interval import ETERNITY
 from tpu_olap_torch.kernels.filtereval import _take
+from tpu_olap_torch.kernels.groupby import UnsupportedAggregation
 from tpu_olap_torch.kernels.sparse_groupby import SENTINEL
 from tpu_olap_torch.ir.query import (GroupByQuerySpec, ScanQuerySpec,
                                      SearchQuerySpec,
@@ -287,8 +288,9 @@ class QueryRunner:
     def _run_sparse(self, plan: PhysicalPlan, metrics: dict) -> dict:
         """Sparse route: the sort-based group-by with an adaptive compact
         table cap; each attempt is one copy back. Past
-        `sparse_group_budget` present groups the query needs the fallback
-        interpreter, which is not ported: FallbackNotPorted."""
+        `sparse_group_budget` present groups it raises
+        UnsupportedAggregation, and the engine serves the query from the
+        fallback interpreter."""
         args = self._dispatch_args(plan, metrics)
         cap_limit = min(self.config.sparse_group_budget, plan.total_groups)
         key, cap = self._cap_hint(plan, "sparse",
@@ -301,10 +303,9 @@ class QueryRunner:
             if count <= cap:
                 break
             if count > cap_limit:
-                from tpu_olap_torch.planner.plan import FallbackNotPorted
-                raise FallbackNotPorted(
+                raise UnsupportedAggregation(
                     f"{count} present groups exceed sparse budget "
-                    f"{cap_limit}; not yet ported: fallback interpreter")
+                    f"{cap_limit}")
             reruns.append(cap)
             cap = min(cap_limit, _next_pow2(count))
         self._cap_hints[key] = count

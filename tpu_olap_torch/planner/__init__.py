@@ -3,10 +3,9 @@
 reference's order (join collapse → project/filter pushdown + interval
 extraction → aggregate translation → limit/topN selection) compile it into
 a QuerySpec via the QueryBuilder accumulator. A statement the rules do not
-rewrite needs the pandas fallback interpreter, which is not ported yet:
-the engine raises `FallbackNotPorted` for it.
+rewrite runs in the pandas fallback interpreter (`planner.fallback`).
 """
 
 from tpu_olap_torch.planner.sqlparse import parse_sql  # noqa: F401
-from tpu_olap_torch.planner.plan import (DruidPlanner, FallbackNotPorted,  # noqa: F401
-                                         PlanResult, RewriteError)
+from tpu_olap_torch.planner.plan import (DruidPlanner, PlanResult,  # noqa: F401
+                                         RewriteError)

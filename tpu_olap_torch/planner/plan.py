@@ -47,11 +47,6 @@ class RewriteError(Exception):
     """Query shape not expressible on the device path -> fallback."""
 
 
-class FallbackNotPorted(NotImplementedError):
-    """The statement needs the pandas fallback interpreter, which this
-    package does not have yet: raised instead of executing anything."""
-
-
 _CMP = ("==", "!=", "<", "<=", ">", ">=")
 _TIME_FUNCS = {"year": ("YYYY", "int"), "month": ("MM", "int"),
                "day": ("dd", "int"), "dayofmonth": ("dd", "int"),
@@ -83,10 +78,6 @@ class PlanResult:
     outputs: list = field(default_factory=list)
     fallback_reason: str | None = None
     sql: str | None = None
-    # set when the device circuit breaker (resilience.breaker) rerouted
-    # this statement to the interpreter: the record stamps
-    # path="fallback_breaker" so degraded serving is visible
-    breaker_fallback: bool = False
 
     @property
     def rewritten(self) -> bool:
@@ -134,6 +125,48 @@ def _outside_subset(stmt) -> str | None:
             if r:
                 return r
     return None
+
+
+_FALLBACK_FUNCS = ("corr_scalar_map", "corr_exists_map", "corr_in_map",
+                   "corr_exists_cmp_map")
+
+
+def _scan_stmt_nodes(stmt):
+    """One traversal over every expression-bearing clause (via
+    map_stmt_exprs, the shared walker — incl. grouping_sets) collecting
+    what subquery inlining needs to know up front: nested SELECTs,
+    window-function presence (inlining would be discarded, so don't
+    execute anything), and decorrelated corr_* map nodes (only the
+    fallback evaluator applies those). Returns (substmts, has_window,
+    has_corr_nodes)."""
+    from tpu_olap_torch.ir.expr import Subquery, WindowCall
+    from tpu_olap_torch.planner.exprutil import map_stmt_exprs
+    subs: list = []
+    flags = {"window": False, "corr": False}
+
+    def visit(e):
+        if isinstance(e, Subquery):
+            subs.append(e.stmt)
+        elif isinstance(e, WindowCall):
+            flags["window"] = True
+            for a in e.args:
+                visit(a)
+            for p in e.partition_by:
+                visit(p)
+            for oe, _ in e.order_by:
+                visit(oe)
+        elif isinstance(e, BinOp):
+            visit(e.left)
+            visit(e.right)
+        elif isinstance(e, FuncCall):
+            if e.name in _FALLBACK_FUNCS:
+                flags["corr"] = True
+            for a in e.args:
+                visit(a)
+        return e
+
+    map_stmt_exprs(stmt, visit)
+    return subs, flags["window"], flags["corr"]
 
 
 def _apply_windows_over_groups(stmt):
@@ -238,6 +271,10 @@ class DruidPlanner:
     def __init__(self, catalog, config):
         self.catalog = catalog
         self.config = config
+        # stmt -> DataFrame executor the Engine wires in: lets the
+        # planner evaluate uncorrelated subqueries eagerly (device path
+        # when rewritable) so the OUTER query can still push down
+        self.run_subquery = None
 
     def plan(self, sql: str) -> PlanResult:
         return self.plan_stmt(parse_sql(sql), sql)
@@ -325,10 +362,28 @@ class DruidPlanner:
                 stmt=stmt, entry=None, sql=sql,
                 fallback_reason="derived table (FROM subquery) executes "
                                 "on the fallback path")
-        # uncorrelated subqueries would be inlined as literals by the
-        # fallback interpreter (not ported yet): they stay unrewritten,
-        # and the engine refuses them with FallbackNotPorted
         outside = _outside_subset(stmt)
+        if outside == "subquery" and self.run_subquery is not None:
+            # the reference's architecture for this shape: Spark executed
+            # the subquery, the rewritten outer query pushed to Druid
+            # (SURVEY.md §3.1). Inline uncorrelated subquery results as
+            # literals and try the device path for the outer query;
+            # anything that doesn't fully inline keeps the fallback.
+            alt = self._inline_uncorrelated(stmt)
+            if alt is not None:
+                entry = self.catalog.get(stmt.table)
+                # the inlined statement is the one to keep for ANY
+                # execution path: its subqueries already ran, so a
+                # fallback after a failed outer rewrite replays literals
+                # instead of re-executing the inner aggregates
+                result = PlanResult(stmt=alt, entry=entry, sql=sql)
+                try:
+                    _Rewriter(self, alt, entry, result).run()
+                    return result
+                except RewriteError as e:
+                    result.query = None
+                    result.fallback_reason = str(e)
+                    return result
         if outside is not None:
             return PlanResult(
                 stmt=stmt, entry=self.catalog.get(stmt.table), sql=sql,
@@ -341,6 +396,40 @@ class DruidPlanner:
             result.query = None
             result.fallback_reason = str(e)
         return result
+
+    def _inline_uncorrelated(self, stmt):
+        """Execute every uncorrelated scalar/IN/EXISTS subquery via
+        run_subquery and inline the results as literals. None when
+        nothing inlined, the statement still carries subquery constructs
+        (correlated shapes resolve to corr_* map nodes only the fallback
+        evaluator understands), or resolution failed."""
+        from tpu_olap_torch.planner import fallback as fb
+        from tpu_olap_torch.planner.exprutil import simplify_stmt
+        # pre-scan BEFORE any execution: a correlated member can only
+        # resolve to corr_* map nodes we would discard, a window
+        # function keeps the whole statement on the fallback anyway,
+        # and _resolve_subqueries runs inner statements eagerly —
+        # bailing here keeps that work single-execution
+        subs, has_window, _ = _scan_stmt_nodes(stmt)
+        if has_window or not subs:
+            return None
+        for sub in subs:
+            if not fb._uncorrelated(sub):
+                return None
+        try:
+            resolved = fb._resolve_subqueries(
+                stmt, self.catalog, self.config, run=self.run_subquery)
+        except fb.FallbackError:
+            return None
+        if resolved is stmt:
+            return None
+        resolved = simplify_stmt(resolved)
+        if _outside_subset(resolved) is not None:
+            return None
+        _, _, has_corr = _scan_stmt_nodes(resolved)
+        if has_corr:
+            return None
+        return resolved
 
 
 class _Rewriter:

@@ -2,12 +2,17 @@
 
 The analog of the reference's L0→L1 data path: the raw fact table Druid
 would have indexed is ingested into device-ready columnar blocks
-(BASELINE.json:5). This package keeps the
-in-memory entry shape only (`ingest_arrow` / `ingest_pandas`): the whole
-table at once, globally time-sorted (best interval pruning). Strings are
-dictionary-encoded to temp codes and remapped to the final *sorted*
-dictionary in a finalize pass, so lexicographic bound filters stay pure
-code-range compares. Streaming parquet ingest is not ported yet.
+(BASELINE.json:5 "streams Parquet→HBM"). Two entry shapes:
+
+- In-memory (`ingest_arrow` / `ingest_pandas`): whole table at once,
+  globally time-sorted (best interval pruning).
+- Streaming (`ingest_parquet` / `ingest_parquet_stream`): row-group
+  batches from one or many parquet files under bounded host memory —
+  the SF10/SF100-shaped path (SURVEY.md §8.4 #4). Only one batch of
+  decoded Arrow data is transient at a time; strings are dictionary-
+  encoded to int32 temp codes immediately (the raw strings are dropped
+  per batch) and remapped to the final *sorted* dictionary in a finalize
+  pass, so lexicographic bound filters stay pure code-range compares.
 
 Numeric storage narrows to the smallest int dtype the observed value
 range allows (int8/int16/int32/int64; dictionary codes narrow by
@@ -587,3 +592,92 @@ def ingest_pandas(name: str, df, time_column: str | None = None,
     return ingest_arrow(name, pa.Table.from_pandas(df, preserve_index=False),
                         time_column, block_rows, time_partition)
 
+
+def ingest_parquet(name: str, path, time_column: str | None = None,
+                   block_rows: int = DEFAULT_BLOCK_ROWS,
+                   columns=None, column_map: dict | None = None,
+                   batch_rows: int | None = None,
+                   time_partition="auto") -> TableSegments:
+    """Streaming parquet ingest; `path` may be one path or a list."""
+    return ingest_parquet_stream(name, path, time_column, block_rows,
+                                 columns, column_map, batch_rows,
+                                 time_partition)
+
+
+def _parquet_time_stats(paths, time_col):
+    """(t_min_ms, t_max_ms, total_rows) from parquet row-group footer
+    statistics — metadata only, no data read. (None, None, rows) when
+    any row group lacks stats for the time column."""
+    import pyarrow.parquet as pq
+    lo = hi = None
+    rows = 0
+    for path in paths:
+        md = pq.ParquetFile(path).metadata
+        rows += md.num_rows
+        try:
+            sidx = md.schema.names.index(time_col)
+        except ValueError:
+            return None, None, rows
+        for rg in range(md.num_row_groups):
+            st = md.row_group(rg).column(sidx).statistics
+            if st is None or not st.has_min_max:
+                return None, None, rows
+            mn, mx = st.min, st.max
+            if hasattr(mn, "timestamp"):
+                mn = int(mn.timestamp() * 1000)
+                mx = int(mx.timestamp() * 1000)
+            elif not isinstance(mn, (int, np.integer)):
+                return None, None, rows
+            lo = mn if lo is None else min(lo, mn)
+            hi = mx if hi is None else max(hi, mx)
+    return lo, hi, rows
+
+
+def ingest_parquet_stream(name: str, paths, time_column: str | None = None,
+                          block_rows: int = DEFAULT_BLOCK_ROWS,
+                          columns=None, column_map: dict | None = None,
+                          batch_rows: int | None = None,
+                          time_partition="auto") -> TableSegments:
+    """Row-group streaming ingest over one or many parquet files under
+    bounded host memory (SURVEY.md §8.4 #4 / BASELINE.json:5 "streams
+    Parquet→HBM"). `columns` / `column_map` use POST-rename names, like
+    Engine.register_table. time_partition="auto" resolves the Druid
+    segmentGranularity analog from the footer's time statistics."""
+    import pyarrow.parquet as pq
+
+    if isinstance(paths, str):
+        paths = [paths]
+    column_map = dict(column_map) if column_map else None
+    inverse = {v: k for k, v in (column_map or {}).items()}
+    read_cols = [inverse.get(c, c) for c in columns] if columns else None
+
+    if time_partition == "auto" and time_column is not None:
+        src_time = inverse.get(time_column, time_column)
+        t_lo, t_hi, n_rows = _parquet_time_stats(paths, src_time)
+        time_partition = resolve_time_partition(
+            "auto", t_lo, t_hi, n_rows, block_rows)
+    elif time_partition == "auto":
+        time_partition = None
+
+    ing = StreamIngestor(name, time_column, block_rows, time_partition)
+    bs = batch_rows or block_rows
+    dict_cols = None   # string columns read as arrow dictionaries
+    for path in paths:
+        if dict_cols is None:
+            import pyarrow as pa
+            schema = pq.read_schema(path)
+            dict_cols = [
+                f.name for f in schema
+                if (pa.types.is_string(f.type)
+                    or pa.types.is_large_string(f.type))
+                and (read_cols is None or f.name in read_cols)]
+        pf = pq.ParquetFile(path, read_dictionary=dict_cols)
+        try:
+            for batch in pf.iter_batches(batch_size=bs, columns=read_cols):
+                if column_map:
+                    batch = batch.rename_columns(
+                        [column_map.get(c, c) for c in batch.schema.names])
+                ing.add_arrow(batch)
+        finally:
+            pf.close()
+    return ing.finalize()
