@@ -98,13 +98,35 @@ Phases, each printing its own line; any failure exits nonzero:
      counts set to 0 just before; first run, p50 over 3, device busy
      share under torch.profiler, resident device bytes), every launch
      replayed against the plain version (exact), B1's cold and warm time
-     at q1.1, q2.1 and q3.1 against the bound at SF10's bytes, and q1.1
-     and q2.1 against the chunked pandas fallback over the same parquet
-     (exact).
-The phases run in the order 1-4, 10, 5-8, 9. Every torch.profiler
-reading stands only when its profile holds one device activity for each
-kernel launch, copy and fill the host issued in it (`profiled`): the
-profiler now and then drops device activities on the chip machine.
+     at q1.1, q2.1 and q3.1 against the bound at SF10's bytes, phase 11's
+     batch (a) over the SF10 segments (checked as in phase 11; the
+     multi-leg kernel's cold and warm time against the SF10 bound), and
+     q1.1 and q2.1 against the chunked pandas fallback over the same
+     parquet (exact);
+  11. shared-scan batches (executor.batch) on the SF1 engine: (a) the 13
+     queries as one Engine.sql_batch, (b) a dashboard storm of 8 x q2.1
+     and 4 x q3.1, (c) 8 threads each sending its own statement through
+     Engine.sql with the coalescer on (batch_window_ms=5). Each with the
+     counts set to 0 just before: every statement equals its single run
+     exactly, the multi-leg kernel launches once per fused group, B1
+     once per single leg and never for a fused one, one copy per group,
+     and (a) and (b) run under set_sync_debug_mode("error") lifted only
+     for the copy. Per batch: its fused groups and single legs, first
+     run (NVRTC compile of a new composition included) and p50 against
+     the sum of its statements' single p50s; per composition the
+     compile record (registers, spills); device busy under
+     torch.profiler; every multi-leg launch replayed against the plain
+     version (exact) after the counts are read; the kernel's cold and
+     warm time at (a)'s largest fused group against its bound (the
+     union window's bytes read once), its plain version and its legs'
+     B1 launches one after another (the yardstick: no torch call
+     computes a batch).
+The phases run in the order 1-4, 10, 5-8, 11, 9. Every torch.profiler
+reading stands only when
+its profile holds one device activity for each kernel launch, copy and
+fill the host issued in it (`profiled`): the profiler now and then drops
+device activities on the chip machine (the first kernels of a session:
+see PROFILE_PRIMERS).
 The second-to-last lines are the kernel table as JSON and the card's
 `nvidia-smi` name and power limit; the last line is the result JSON.
 """
@@ -177,6 +199,12 @@ def cuda_ms(fn, iters: int, between=None) -> float:
 
 
 PROFILE_TRIES = 3
+# In most phases the profiler lost the first 3-4 kernels of every session
+# (a pause before the work, or a discarded warm-up step, did not help),
+# so each session starts with this many tiny kernels of its own, which
+# the readings leave out.
+PROFILE_PRIMERS = 8
+PRIMER_KERNEL = "spin_kernel"            # torch.cuda._sleep's kernel
 
 
 def profiled(run, cpu=False):
@@ -184,10 +212,10 @@ def profiled(run, cpu=False):
     `cpu`) until the profile holds one device activity for each kernel
     launch, copy and fill the host issued in it, at most PROFILE_TRIES
     times. Returns (profile, None), or (None, why not). On the chip
-    machine the profiler now and then drops device activities (a few
-    sessions in some hundreds, back to back) while it keeps the host's
-    launch and copy calls: a profile whose device side does not count
-    those calls is not a measurement."""
+    machine the profiler has dropped device activities while it kept the
+    host's launch and copy calls (the first kernels of a session, see
+    PROFILE_PRIMERS): a profile whose device side does not count the
+    measured work's calls is not a measurement."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -196,6 +224,9 @@ def profiled(run, cpu=False):
     for _ in range(PROFILE_TRIES):
         try:
             with profile(activities=acts) as prof:
+                for _ in range(PROFILE_PRIMERS):
+                    torch.cuda._sleep(100)
+                torch.cuda.synchronize()
                 run()
                 torch.cuda.synchronize()
         except RuntimeError as e:  # CUPTI unavailable: a reading, not a fault
@@ -203,7 +234,7 @@ def profiled(run, cpu=False):
         calls = [e for e in prof.key_averages()
                  if e.device_type == DeviceType.CPU]
         launched = sum(e.count for e in calls if e.key.startswith(
-            ("cudaLaunchKernel", "cuLaunchKernel")))
+            ("cudaLaunchKernel", "cuLaunchKernel"))) - PROFILE_PRIMERS
         copied = sum(e.count for e in calls if e.key.startswith(
             ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")))
         dev = device_events(prof)
@@ -214,8 +245,12 @@ def profiled(run, cpu=False):
             return prof, None
         apis = {e.key: e.count for e in calls
                 if e.key.startswith(("cudaLaunch", "cuLaunch"))}
+        seen: dict = {}
+        for e in dev:
+            seen[e.key[:90]] = seen.get(e.key[:90], 0) + e.count
         why = (f"profiler saw {kernels} of {launched} kernel launches "
-               f"{apis} and {copies} of {copied} copies and fills")
+               f"{apis} and {copies} of {copied} copies and fills; device "
+               f"activities seen {seen}")
     return None, f"{why}, {PROFILE_TRIES} tries"
 
 
@@ -264,10 +299,12 @@ def timed(fn, iters: int, kernel: str = "", between=None):
 def device_events(prof):
     """The profile's device activities (kernels, copies, fills) by name.
     A CPU operator's entry carries the device time of the kernels it
-    launched too, so summing over every entry would count it twice."""
+    launched too, so summing over every entry would count it twice.
+    The session's primer kernels (see `profiled`) are left out."""
     from torch.autograd import DeviceType
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and PRIMER_KERNEL not in e.key]
 
 
 def device_busy(runs, kernel=GEN_KERNEL) -> str:
@@ -973,6 +1010,325 @@ def scan_phase(eng, d, reps, tag, flush_l2):
 
 
 
+# -- phase 11: shared-scan batches -----------------------------------------
+
+MULTI_KERNEL = "fused_reduce_multi_gen"   # the multi-leg kernel's name
+STORM = ("q2.1",) * 8 + ("q3.1",) * 4    # a dashboard storm
+COALESCED = ("q1.1", "q1.2", "q2.1", "q2.2", "q3.1", "q3.2", "q4.1", "q4.2")
+
+
+def multi_bound(progs, inputs, valid, seg_masks, Ks, sums):
+    """(bytes_ms, ops_ms, bytes) of one multi-leg launch, every input
+    read once. Bytes: the valid bytes of the segments some leg keeps;
+    a mask-cone stream over the valid rows of the union of the segments
+    kept by the legs whose cone reads it; any other stream over the most
+    rows that pass one leg reading it (a lower bound on their union,
+    which is not known row by row); each leg's segment mask, tables and
+    group table once. Operations: kernel_bound's, summed over the
+    legs."""
+    import numpy as np
+    import torch
+    from tpu_olap_torch.kernels import rowprog
+    cone = {}    # data pointer -> (bytes per row, union of segment masks)
+    passed = {}  # data pointer -> (bytes per row, most rows passing a leg)
+    kept = seg_masks[0].clone()
+    read, written, ops = 0, 0, 0
+    for prog, ins, seg, K, s in zip(progs, inputs, seg_masks, Ks, sums):
+        kept |= seg
+        n_base = int((valid & seg[:, None]).sum())
+        n_sel = int(s[:, 0].sum())   # column 0 is _rows
+        read += seg.numel() + prog.data.nbytes
+        for slot in prog.loaded_slots:
+            t = ins[slot]
+            key, size = t.data_ptr(), t.element_size()
+            if slot in prog.cone_slots:
+                _, segs = cone.get(key, (size, torch.zeros_like(seg)))
+                cone[key] = (size, segs | seg)
+            else:
+                passed[key] = (size, max(passed.get(key, (size, 0))[1],
+                                         n_sel))
+        written += K * (8 * prog.n_sum + 4 * (prog.n_cols - prog.n_sum))
+        pc = prog.exit_pc
+        alu = ~np.isin(prog.ins[:, 0], (rowprog.LOAD, rowprog.IMM,
+                                        rowprog.EXITZ))
+        ops += int(alu[:pc].sum()) * n_base \
+            + (int(alu[pc + 1:].sum()) + prog.n_cols) * n_sel
+    read += int(kept.sum()) * valid.shape[1]
+    for key, (size, segs) in cone.items():
+        rows = int((valid & segs[:, None]).sum())
+        read += size * max(rows, passed.pop(key, (size, 0))[1])
+    read += sum(size * rows for size, rows in passed.values())
+    return ((read + written) / HBM_BYTES_PER_S * 1e3,
+            ops / INT32_OPS_PER_S * 1e3, read + written)
+
+
+def check_multi(fr, a, label):
+    """The multi-leg kernel vs its plain version on one recorded launch;
+    fails on any difference. Returns (max error, the kernel's sums per
+    leg)."""
+    import torch
+    got = fr.fused_reduce_multi(*a)
+    torch.cuda.synchronize()
+    want = fr.fused_reduce_multi_ref(*a)
+    torch.cuda.synchronize()
+    err = 0
+    for leg, (g, w) in enumerate(zip(got, want)):
+        for x, y in zip(g, w):
+            if x.shape != y.shape or x.dtype != y.dtype:
+                fail(f"multi-leg kernel leg {leg} output {x.shape}/{x.dtype}"
+                     f" vs plain {y.shape}/{y.dtype} at {label}")
+        err = max(err, max_abs_diff(g, w))
+    if err:
+        fail(f"multi-leg kernel disagrees with the plain version at {label}: "
+             f"max |kernel - plain| = {err}")
+    return err, [g[0] for g in got]
+
+
+def multi_times(label, a, sums, max_err, launches, tag, flush_l2) -> dict:
+    """The multi-leg kernel at one recorded launch's inputs `a`: device
+    time warm and cold against its bound, the plain version, and the
+    yardstick: its legs' B1 launches, one after another on the same
+    inputs (no single torch call computes the batch). Prints one line;
+    returns the kernel's JSON entry."""
+    from tpu_olap_torch.kernels import fused_reduce as fr
+    progs, inputs, valid, seg_masks, Ks = a
+    bytes_ms, ops_ms, nbytes = multi_bound(*a, sums)
+    bound = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    warm, cold, hows = [], [], {}
+    for _ in range(2):
+        for runs, between in ((warm, None), (cold, flush_l2)):
+            ms, how = timed(lambda: fr.fused_reduce_multi(*a), 20,
+                            MULTI_KERNEL, between)
+            runs.append(ms)
+            hows[how] = None
+    multi_ms = sum(cold) / 2
+
+    def legs_b1():
+        for leg in zip(progs, inputs, seg_masks, Ks):
+            p, i, s, K = leg
+            fr.fused_reduce(p, i, valid, s, K)
+    b1_ms, b1_how = timed(legs_b1, 10, GEN_KERNEL, flush_l2)
+    plain_ms, plain_how = timed(lambda: fr.fused_reduce_multi_ref(*a), 3)
+    kern = fr.compiled_multi(progs, Ks, "cuda")
+    rows = int(sum(int((valid & s[:, None]).sum()) for s in seg_masks))
+    print(f"[11 kernel] at {label} ({len(progs)} legs, K {list(Ks)}, valid "
+          f"{valid.numel()} rows, leg rows in kept segments {rows}): "
+          f"multi-leg warm L2 {warm[0]:.4f} / {warm[1]:.4f} ms, cold L2 "
+          f"{cold[0]:.4f} / {cold[1]:.4f} ms ({'; '.join(hows)}) | bound "
+          f"{bound:.4f} ms ({nbytes} B, {by}; bytes {bytes_ms:.4f}, "
+          f"operations {ops_ms:.4f}) = {multi_ms / bound:.1f}x the bound "
+          f"cold, {sum(warm) / 2 / bound:.1f}x warm | the legs' B1 launches "
+          f"one after another, each cold: {b1_ms:.4f} ms ({b1_how}) | plain "
+          f"{plain_ms:.4f} ms ({plain_how}) | grid {kern.last_grid} blocks "
+          f"({kern.blocks_per_sm} per SM), {plan_report(kern)} {tag}",
+          flush=True)
+    return {"name": "fused_reduce_multi", "route": "cuda",
+            "source": "tpu_olap_torch/csrc/fused_reduce_multi_gen.cuh",
+            "replaces": "tpu_olap/executor/batch.py:441",
+            "launches": launches, "max_abs_err": max_err, "ms": multi_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "at": label}
+
+
+class MultiRecorder:
+    """Records every call of fused_reduce_multi (its inputs, not copies)
+    while active, for the replay after the counts are read."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from tpu_olap_torch.kernels import fused_reduce as fr
+        self.real = real = fr.fused_reduce_multi
+
+        def record(*a):
+            self.calls.append(a)
+            return real(*a)
+        fr.fused_reduce_multi = record
+        return self
+
+    def __exit__(self, *exc):
+        from tpu_olap_torch.kernels import fused_reduce as fr
+        fr.fused_reduce_multi = self.real
+        return False
+
+
+def batch_layout(stmts, names) -> tuple:
+    """(fused groups {batch_id: [names]}, single legs, B1 runs expected,
+    multi-leg launches expected) from sql_batch's per-statement
+    metrics."""
+    groups, singles = {}, []
+    b1 = multi = 0
+    for name, m in zip(names, stmts):
+        if m.get("route") == "batch":
+            groups.setdefault(m["batch_id"], []).append(name)
+        else:
+            singles.append(name)
+            b1 += not m.get("batch_dedup")
+    seen = set()
+    for name, m in zip(names, stmts):
+        if m.get("route") == "batch" and m["batch_id"] not in seen:
+            seen.add(m["batch_id"])
+            multi += m["fused_batch"] > 0
+    return groups, singles, b1, multi
+
+
+def run_checked_batch(eng, names, single, label, tag, sync_checked=True):
+    """One Engine.sql_batch of `names` with the launch counts set to 0 just
+    before: each statement == its single run exactly, one multi-leg
+    launch per fused group, no B1 launch for a fused leg, one copy per
+    group (and, with sync_checked, no host sync before it). Returns
+    (first-run ms, recorded multi-leg launches, multi-leg launches)."""
+    import pandas as pd
+    import torch
+    from tpu_olap_torch.bench import ssb
+    from tpu_olap_torch.kernels import fused_reduce as fr
+    sqls = [ssb.QUERIES[n] for n in names]
+    with MultiRecorder() as rec:
+        fr.launches = fr.multi_launches = 0
+        t = time.perf_counter()
+        if sync_checked:
+            with SyncChecked():
+                try:
+                    frames = eng.sql_batch(sqls)
+                except RuntimeError as e:
+                    fail(f"{label}: a host sync before a copy: {e}")
+        else:
+            frames = eng.sql_batch(sqls)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t) * 1000
+        b1, multi = fr.launches, fr.multi_launches
+    stmts = eng.runner.last_metrics["statements"]
+    groups, singles, want_b1, want_multi = batch_layout(stmts, names)
+    for name, f, m in zip(names, frames, stmts):
+        try:
+            pd.testing.assert_frame_equal(f, single[name])
+        except AssertionError as e:
+            fail(f"{label}: {name} differs from its single run: {e}")
+        if m.get("host_copies") != 1:
+            fail(f"{label}: {name} took {m.get('host_copies')} copies")
+    if not groups or multi != want_multi or b1 != want_b1:
+        fail(f"{label}: fused groups {groups}, singles {singles}: multi-leg "
+             f"launches {multi} (want {want_multi}), B1 launches {b1} "
+             f"(want {want_b1})")
+    print(f"[11 batch] {label}: {len(names)} statements, fused groups "
+          f"(batch_id: statements) {json.dumps(groups)}, single legs "
+          f"{singles}; multi-leg launches {multi} (one per fused group), B1 "
+          f"launches {b1} (one per single leg), one copy per group"
+          + (" with no host sync before it" if sync_checked else "")
+          + f"; every statement == its single run exactly; first run "
+          f"{first:.1f} ms {tag}", flush=True)
+    return first, rec.calls, multi
+
+
+def batch_phase(eng, reps, tag, flush_l2):
+    """Phase 11: shared-scan batches on the SF1 engine. Returns the
+    multi-leg kernel's JSON entry at batch (a)'s largest fused group."""
+    import threading
+
+    import numpy as np
+    import pandas as pd
+    import torch
+    from tpu_olap_torch.bench import ssb
+    from tpu_olap_torch.kernels import cuda_build
+    from tpu_olap_torch.kernels import fused_reduce as fr
+    eng.config.use_fused_reduce = "auto"
+    single, p50 = {}, {}
+    for name, q in ssb.QUERIES.items():
+        single[name] = eng.sql(q)
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            eng.sql(q)
+            ts.append((time.perf_counter() - t) * 1000)
+        p50[name] = float(np.median(ts))
+    batches = {"(a) the 13 queries": tuple(ssb.QUERIES),
+               "(b) storm 8 x q2.1 + 4 x q3.1": STORM}
+    recorded, counts = {}, {}
+    for label, names in batches.items():
+        n_kernels = len(cuda_build._kernels)
+        first, calls, multi = run_checked_batch(eng, names, single, label,
+                                                tag)
+        recorded[label], counts[label] = calls, multi
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            eng.sql_batch([ssb.QUERIES[n] for n in names])
+            ts.append((time.perf_counter() - t) * 1000)
+        singles = sum(p50[n] for n in names)
+        print(f"[11 time] {label}: first run {first:.1f} ms (NVRTC compiles "
+              f"{len(cuda_build._kernels) - n_kernels}), p50 "
+              f"{float(np.median(ts)):.3f} ms over {reps} runs | the "
+              f"statements' single p50s sum to {singles:.3f} ms {tag}",
+              flush=True)
+        for a in calls:
+            kern = fr.compiled_multi(a[0], a[4], "cuda")
+            print(f"[11 plan] {label}: {len(a[0])} legs, K {list(a[4])}: "
+                  f"{plan_report(kern)}", flush=True)
+
+    busy = device_busy(
+        {label: (lambda names=names: eng.sql_batch(
+            [ssb.QUERIES[n] for n in names])) for label, names
+         in batches.items()}, kernel=MULTI_KERNEL)
+    print(f"[11 device] {busy} {tag}", flush=True)
+
+    # (c) the coalescer: 8 threads, each its own statement, one window
+    eng.runner.set_batch_window(5)
+    got, stmts, errors = {}, {}, []
+    gate = threading.Barrier(len(COALESCED))
+
+    def caller(name):
+        try:
+            gate.wait()
+            got[name] = eng.sql(ssb.QUERIES[name])
+            stmts[name] = dict(eng.runner.last_metrics)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{name}: {e!r}")
+    with MultiRecorder() as rec:
+        fr.launches = fr.multi_launches = 0
+        threads = [threading.Thread(target=caller, args=(n,))
+                   for n in COALESCED]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        torch.cuda.synchronize()
+        b1, multi = fr.launches, fr.multi_launches
+    eng.runner.set_batch_window(0)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"(c) coalescer: {errors or 'a caller hung'}")
+    for name in COALESCED:
+        pd.testing.assert_frame_equal(got[name], single[name])
+    sizes = [stmts[n].get("batch_size", 1) for n in COALESCED]
+    groups, singles, want_b1, want_multi = batch_layout(
+        [stmts[n] for n in COALESCED], COALESCED)
+    if max(sizes) < 2 or multi != want_multi or b1 != want_b1:
+        fail(f"(c) coalescer: batch sizes {sizes}, fused groups {groups}, "
+             f"multi-leg launches {multi} (want {want_multi}), B1 {b1} "
+             f"(want {want_b1})")
+    recorded["(c) coalescer"] = rec.calls
+    print(f"[11 batch] (c) coalescer, 8 threads, batch_window_ms=5: batch "
+          f"sizes {sizes}, fused groups {json.dumps(groups)}, single legs "
+          f"{singles}; multi-leg launches {multi}, B1 launches {b1}; every "
+          f"answer == its single run exactly {tag}", flush=True)
+
+    # every multi-leg launch of the phase against the plain version
+    max_err, largest = 0, None
+    for label, calls in recorded.items():
+        for a in calls:
+            err, sums = check_multi(fr, a, label)
+            max_err = max(max_err, err)
+            if label.startswith("(a)") and (
+                    largest is None or len(a[0]) > len(largest[0][0])):
+                largest = (a, sums)
+    n = sum(len(c) for c in recorded.values())
+    print(f"[11 replay] {n} multi-leg launches of the phase replayed: "
+          f"kernel == plain version exactly", flush=True)
+    return multi_times("batch SF1", *largest, max_err,
+                       counts["(a) the 13 queries"], tag, flush_l2)
+
+
 # -- phase 9: the TPC-H shapes over a parquet-registered fact ---------------
 
 def uninlined_fallback(eng, sql):
@@ -1218,7 +1574,8 @@ def tpch_phase(workdir, reps, tag):
 def sf10_phase(workdir, rows, reps, tag, flush_l2):
     """Phase 10: SSB at SF10 (60,000,000 lineorder rows) written as
     parquet and streamed into the card through register_ssb_parquet.
-    Returns B1's JSON entry at q2.1."""
+    Returns B1's JSON entries at q2.1 and the multi-leg kernel's at
+    batch (a)."""
     import os
     import resource
 
@@ -1306,6 +1663,21 @@ def sf10_phase(workdir, rows, reps, tag, flush_l2):
                               flush_l2, label=" SF10")
                  for name in ("q1.1", "q2.1", "q3.1")]
 
+    # batch (a) of phase 11 once more, over SF10's segments
+    _, calls, multi = run_checked_batch(eng, tuple(ssb.QUERIES), got,
+                                        "(a) the 13 queries at SF10", tag)
+    multi_err, largest = 0, None
+    for a in calls:
+        err, sums = check_multi(fr, a, "batch SF10")
+        multi_err = max(multi_err, err)
+        if largest is None or len(a[0]) > len(largest[0][0]):
+            largest = (a, sums)
+    print(f"[10 replay] {len(calls)} multi-leg launches replayed: kernel == "
+          f"plain version exactly", flush=True)
+    batch_row = multi_times("batch SF10", *largest, multi_err, multi, tag,
+                            flush_l2)
+    del calls, largest
+
     # q1.1 and q2.1 against the chunked pandas fallback over the parquet
     for name in ("q1.1", "q2.1"):
         t = time.perf_counter()
@@ -1319,7 +1691,7 @@ def sf10_phase(workdir, rows, reps, tag, flush_l2):
     if eng.catalog.get("lineorder")._frame is not None:
         fail("the SF10 fallback materialized the whole lineorder frame")
     eng.clear_cache()
-    return rows_json[1]
+    return rows_json[1], batch_row
 
 
 def main():
@@ -1543,7 +1915,8 @@ def main():
     workdir = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
         t = time.perf_counter()
-        sf10_row = sf10_phase(workdir, SF10_ROWS, 3, tag, flush_l2)
+        sf10_row, sf10_batch_row = sf10_phase(workdir, SF10_ROWS, 3, tag,
+                                              flush_l2)
         print(f"[10 sf10] phase 10 took {time.perf_counter() - t:.1f} s",
               flush=True)
     finally:
@@ -1600,7 +1973,13 @@ def main():
           f" {tag}", flush=True)
     rows.append(scan_phase(eng, denorm, args.reps, tag, flush_l2))
 
-    rows.append(sf10_row)
+    # -- 11. shared-scan batches --------------------------------------------
+    t = time.perf_counter()
+    rows.append(batch_phase(eng, args.reps, tag, flush_l2))
+    print(f"[11 batch] phase 11 took {time.perf_counter() - t:.1f} s",
+          flush=True)
+
+    rows += [sf10_row, sf10_batch_row]
 
     # the SF1 engine's columns leave the card before phase 9
     eng.clear_cache()
@@ -1616,7 +1995,7 @@ def main():
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"kernels": [r for r in rows if r["at"] in (
-        "q2.1", "q2.1 SF10", "scan A")]}))
+        "q2.1", "q2.1 SF10", "scan A", "batch SF1", "batch SF10")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

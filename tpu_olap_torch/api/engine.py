@@ -17,13 +17,20 @@ query off the device. Each fallback answer records its reason in
 "fallback"`. Verbs of subsystems not ported yet (cube DDL, INSERT,
 COMPACT, CHECKPOINT, EXPLAIN ANALYZE) raise `NotYetPorted`, naming the
 ROADMAP item.
+
+`sql_batch` runs several statements as one submission: rewritten
+statements against one table share scans (executor.batch), and the
+same fallback rule holds per statement.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
+import os
 import re
+import threading
 
 import numpy as np
 import pandas as pd
@@ -31,7 +38,8 @@ import pandas as pd
 from tpu_olap_torch.catalog import Catalog, StarSchema, TableEntry
 from tpu_olap_torch.executor.config import EngineConfig
 from tpu_olap_torch.executor.dimplan import UnsupportedDimension
-from tpu_olap_torch.executor.runner import QueryResult, QueryRunner
+from tpu_olap_torch.executor.runner import (QueryResult, QueryRunner,
+                                            nested_execution)
 from tpu_olap_torch.ir.query import (SearchQueryContains, SearchQuerySpec,
                                      SelectQuerySpec)
 from tpu_olap_torch.ir.serde import query_from_json
@@ -62,11 +70,15 @@ class Engine:
             if overrides else config
         self.catalog = Catalog()
         self.runner = QueryRunner(self.config)
+        # engine-level admin (clear, drop) and runner dispatch share one
+        # lock
+        self.device_lock = self.runner.dispatch_lock
         self.planner = DruidPlanner(self.catalog, self.config)
         self.last_plan = None
-        # the runner metrics of the statements a statement ran inside it
-        # (inlined subqueries, derived tables); reset per Engine.sql
-        self._nested: list = []
+        self._tls = threading.local()   # per-thread nested metrics
+        # query ids: the JAX package's Tracer.new_query_id format
+        self._qid_seq = itertools.count(1)
+        self._qid_stamp = f"{os.getpid() & 0xffff:04x}{id(self) & 0xfff:03x}"
         # planner-initiated subquery execution: uncorrelated shapes
         # inline as literals so the outer query can push down; the inner
         # aggregate itself rides the device path when rewritable
@@ -181,6 +193,26 @@ class Engine:
         self.catalog.register(entry)
         self.runner.clear_cache(name)
         return entry
+
+    def register_lookup(self, name: str, mapping: dict):
+        """Register a named lookup map (Druid lookup extraction fn). SQL
+        reaches it as LOOKUP(col, 'name') in projections, GROUP BY and
+        filters (SURVEY.md §3.3 lookup extraction dims)."""
+        self.catalog.lookups[name] = {str(k): v for k, v in mapping.items()}
+
+    @property
+    def _nested(self) -> list:
+        """The runner metrics of the statements the current statement ran
+        inside it (inlined subqueries, derived tables), on this thread;
+        reset per Engine.sql."""
+        nested = getattr(self._tls, "nested", None)
+        if nested is None:
+            nested = self._tls.nested = []
+        return nested
+
+    @_nested.setter
+    def _nested(self, value: list):
+        self._tls.nested = value
 
     # ---------------------------------------------------------------- SQL
 
@@ -303,9 +335,73 @@ class Engine:
         rewritable, else the fallback) — the planner's subquery executor
         and the fallback's derived-table executor. Does not touch
         last_plan: the user-visible plan is the outer statement's."""
-        out = self._execute_plan(self.planner.plan_stmt(stmt))
+        with nested_execution():
+            out = self._execute_plan(self.planner.plan_stmt(stmt))
         self._nested.append(self.runner.last_metrics)
         return out
+
+    # -------------------------------------------------------------- batch
+
+    def _new_query_id(self) -> str:
+        """A fresh query id, in the JAX package's format."""
+        return f"q{self._qid_stamp}-{next(self._qid_seq):06d}"
+
+    def sql_batch(self, queries) -> list[pd.DataFrame]:
+        """Execute several SQL statements as one submission. Rewritten
+        statements against one table run as a shared-scan batch
+        (executor.batch): identical statements scan once, and compatible
+        aggregates share one pass and one copy back. Statement verbs,
+        grouping sets and statements the planner does not rewrite run
+        alone, as through `sql`. A leg whose lowering raised one of the
+        four `Unsupported*` refusals is served by the single path (and
+        so by the fallback interpreter); any other failure raises.
+        Results come back in input order; `runner.last_metrics`
+        then holds each statement's metrics under "statements"."""
+        return self.sql_batch_ids(queries)[0]
+
+    def sql_batch_ids(self, queries):
+        """sql_batch plus each statement's query id (parallel to the
+        results; "-" for a statement verb). The JAX package splits this
+        into a traced wrapper and `_sql_batch_ids_inner`; the port has no
+        tracing yet (ROADMAP item 14), so it is one method."""
+        queries = list(queries)
+        outs: list = [None] * len(queries)
+        plans: dict[int, object] = {}
+        groups: dict[str, list[int]] = {}
+        qids = [self._new_query_id() for _ in queries]
+        self._nested = []
+        for i, q in enumerate(queries):
+            verb = _match_verb(q)
+            if verb is not None:
+                outs[i], qids[i] = verb(self), "-"
+                continue
+            plan = plans[i] = self.planner.plan(q)
+            if plan.rewritten and \
+                    getattr(plan.stmt, "grouping_sets", None) is None:
+                groups.setdefault(plan.entry.name, []).append(i)
+        metrics: list = [{} for _ in queries]
+        for name, idxs in groups.items():
+            if len(idxs) < 2:
+                continue
+            boxed = self.runner._execute_batch_boxed(
+                [plans[i].query for i in idxs],
+                self.catalog.get(name).segments)
+            for i, b in zip(idxs, boxed):
+                if isinstance(b, _UNSUPPORTED):
+                    continue  # the single path serves it (fallback)
+                if isinstance(b, BaseException):
+                    raise b
+                outs[i] = self._frame_from(plans[i], b)
+                metrics[i] = b.metrics
+        for i, plan in plans.items():
+            if outs[i] is None:
+                outs[i] = self._execute_plan(plan)
+                metrics[i] = self.runner.last_metrics
+        if plans:
+            self.last_plan = plans[max(plans)]
+        self.runner.last_metrics = {"route": "sql_batch",
+                                    "statements": metrics}
+        return outs, qids
 
     def _frame_from(self, plan, res: QueryResult) -> pd.DataFrame:
         cols = {}
@@ -362,7 +458,18 @@ class Engine:
         """CLEAR DRUID CACHE analog: drop the device-resident columns and
         memoized plans of one table, or of every table (catalog entries
         stay registered)."""
-        self.runner.clear_cache(table)
+        with self.device_lock:
+            self.runner.clear_cache(table)
+
+    def drop_table(self, name: str):
+        """DROP the datasource: purge its resident columns, memoized
+        plans and cap hints, then unregister it. A later registration
+        under the same name starts from nothing. The JAX package's
+        ingest and cube cascades come with their subsystems (ROADMAP
+        queue A items 12 and 11)."""
+        with self.device_lock:
+            self.runner.clear_cache(name)
+        self.catalog.drop(name)
 
 
 # --------------------------------------------------------------------------

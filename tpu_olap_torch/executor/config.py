@@ -3,7 +3,9 @@
 A trimmed counterpart of the JAX package's EngineConfig: the host-side
 lowering budgets, planner switches and fallback-interpreter bounds keep
 their names and defaults; the device knobs are `device` and
-`use_fused_reduce`.
+`use_fused_reduce`. The JAX package's numpy-platform batch knobs
+(`batch_chunk_segments`, `batch_cpu_threads`) have no counterpart: the
+port's CPU path is the plain torch version of its kernels.
 """
 
 from __future__ import annotations
@@ -94,3 +96,15 @@ class EngineConfig:
     # oracle config, so the fallback side of every parity check stays an
     # independent pandas execution.
     fallback_derived_on_device: bool = True
+
+    # shared-scan batch execution (executor.batch): compatible aggregate
+    # queries against one table run as one pass over the union segment
+    # window, their fused-reduce legs in ONE launch of the multi-leg
+    # kernel (kernels.fused_reduce.fused_reduce_multi) and one copy
+    # back. batch_window_ms > 0 turns on the request coalescer:
+    # concurrent QueryRunner.execute() callers of aggregate queries wait
+    # up to this window and ride one batch. 0 = off (execute_batch() and
+    # Engine.sql_batch still batch explicitly).
+    batch_window_ms: float = 0.0
+    # most logical queries per fused dispatch; larger batches split
+    batch_max_queries: int = 16

@@ -73,6 +73,39 @@ class PhysicalPlan:
     # cap -> fn(env, valid, seg_mask, consts) -> compact sparse partials
     make_sparse_kernel: object = None
 
+    def fingerprint(self) -> tuple:
+        """The plan's structure: table, query template (literals
+        stripped) and the ConstPool's tags and layout. The batch
+        executor orders a fused group's legs by it, so a repeated
+        dashboard meets the same multi-leg kernel. Memoized: plans are
+        cached across executions."""
+        fp = getattr(self, "_fp", None)
+        if fp is None:
+            import json
+            t = _template(self.query.to_json())
+            fp = self._fp = (
+                self.table.name, json.dumps(t, sort_keys=True, default=str),
+                self.pool.signature() if self.pool is not None else ())
+        return fp
+
+
+_LITERAL_KEYS = {"value", "values", "lower", "upper", "pattern", "intervals"}
+
+
+def _template(j):
+    """Strip literal values from a query-JSON tree, keep structure.
+    Expression subtrees (virtual columns, expression filters) stay
+    verbatim, literals included: `sum(x*2)` and `sum(x*3)` are
+    different structures."""
+    if isinstance(j, dict):
+        if j.get("type") == "expression":
+            return j
+        return {k: ("?" if k in _LITERAL_KEYS else _template(v))
+                for k, v in j.items()}
+    if isinstance(j, list):
+        return [_template(x) for x in j]
+    return j
+
 
 def lower(query, table, config) -> PhysicalPlan:
     if isinstance(query, (TimeseriesQuerySpec, GroupByQuerySpec,

@@ -21,12 +21,17 @@ it back, and the host gathers the rows from the host segment columns.
 Search counts the coded dimensions' values under the same mask on the
 device (one copy) and runs a GroupBy per numeric dimension;
 TimeBoundary and SegmentMetadata read the table's manifest.
-The caches, the batch coalescer, the stage graph and the mesh are not
-ported yet.
+Batches of aggregate queries share one pass (executor.batch):
+`execute_batch`, and the coalescer behind EngineConfig.batch_window_ms
+that gathers concurrent `execute` callers into one batch. Device work
+runs under `dispatch_lock`; coalesced callers wait outside it. The
+caches, the stage graph and the mesh are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -81,18 +86,97 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+_nesting = threading.local()
+
+
+@contextlib.contextmanager
+def nested_execution():
+    """Mark the statements run inside this block, on this thread, as
+    nested in an outer one (inlined subqueries, derived bodies): they
+    dispatch directly and never enter the coalescer, whose leader would
+    run them on its own thread outside the outer statement."""
+    _nesting.depth = getattr(_nesting, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _nesting.depth -= 1
+
+
+def in_nested_execution() -> bool:
+    return getattr(_nesting, "depth", 0) > 0
+
+
 class QueryRunner:
     def __init__(self, config: EngineConfig | None = None):
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device)
+        # serializes device dispatch and the caches below; the engine's
+        # device_lock is this object. Coalesced callers wait outside it
+        # and the batch leader takes it (executor.batch).
+        self.dispatch_lock = threading.RLock()
         self._datasets: dict[str, DeviceDataset] = {}
         self._plan_cache: dict = {}
         # last observed group count per query template and route: sizes
         # the next run's packed / sparse cap
         self._cap_hints: dict = {}
-        self.last_metrics: dict = {}
+        self._tls = threading.local()   # per-thread last_metrics
+        self._coalescer = None
+        self._batch_seq = 0
+        if (self.config.batch_window_ms or 0) > 0:
+            self.set_batch_window(self.config.batch_window_ms)
+
+    @property
+    def last_metrics(self) -> dict:
+        """The metrics of the last query this thread ran."""
+        return getattr(self._tls, "metrics", {})
+
+    @last_metrics.setter
+    def last_metrics(self, metrics: dict):
+        self._tls.metrics = metrics
+
+    def set_batch_window(self, window_ms: float | None):
+        """Turn the shared-scan coalescer on (window_ms > 0) or off:
+        with a window, concurrent execute() callers of aggregate queries
+        ride one batch (executor.batch.Coalescer)."""
+        from tpu_olap_torch.executor.batch import Coalescer
+        self.config.batch_window_ms = float(window_ms or 0.0)
+        self._coalescer = Coalescer(self, float(window_ms) / 1000.0) \
+            if window_ms else None
+
+    def execute_batch(self, queries, table) -> list:
+        """Execute N queries against one table as a shared-scan batch
+        (executor.batch.run_batch): identical queries scan once,
+        compatible dense aggregate legs share one pass, everything else
+        runs through the single-query path. Results in input order; the
+        first failed leg's exception raises."""
+        boxed = self._execute_batch_boxed(list(queries), table)
+        for b in boxed:
+            if isinstance(b, BaseException):
+                raise b
+        return boxed
+
+    def _execute_batch_boxed(self, queries, table) -> list:
+        from tpu_olap_torch.executor.batch import run_batch
+        with self.dispatch_lock:
+            return run_batch(self, queries, table)
+
+    def _next_batch_id(self) -> int:
+        self._batch_seq += 1
+        return self._batch_seq
 
     def execute(self, query, table) -> QueryResult:
+        if self._coalescer is not None and not in_nested_execution():
+            from tpu_olap_torch.executor.batch import AGG_QUERY_TYPES
+            if isinstance(query, AGG_QUERY_TYPES):
+                # waits outside dispatch_lock so that concurrent callers
+                # can coalesce; the batch leader takes it
+                res = self._coalescer.submit(query, table)
+                self.last_metrics = res.metrics
+                return res
+        with self.dispatch_lock:
+            return self._execute(query, table)
+
+    def _execute(self, query, table) -> QueryResult:
         t0 = time.perf_counter()
         if isinstance(query, TimeBoundaryQuerySpec):
             res = self._run_time_boundary(query, table)

@@ -55,6 +55,12 @@ class ConstPool:
     def tag(self, s: str) -> None:
         self.tags.append(s)
 
+    def signature(self) -> tuple:
+        """Structure-identifying key fragment: tags + const layout."""
+        layout = tuple((k, v.shape, str(v.dtype))
+                       for k, v in self.consts.items())
+        return (tuple(self.tags), layout)
+
 
 class UnsupportedFilter(Exception):
     """Raised when a filter can't lower to the device path; the planner
@@ -348,6 +354,30 @@ def compile_filter(spec, table, pool: ConstPool, virtual_exprs=None):
         return lambda env, c: _take(c[cname], env["cols"][col])
 
     return lower(spec)
+
+
+def compile_predicates(specs, table, pool: ConstPool, virtual_exprs=None):
+    """Compile SEVERAL FilterSpecs against one shared ConstPool/env:
+    every returned mask fn reads the same materialized column env, so N
+    queries' predicates cost one read of the shared inputs plus N mask
+    combines, not N column reads. The batch executor reaches the same
+    contract through each leg's PhysicalPlan.front_half; this is the
+    standalone spelling. None entries (unfiltered legs) pass through as
+    None; raises UnsupportedFilter on the first spec that cannot
+    lower. Nothing in the port calls it (nor does the JAX package's
+    executor): it stays as the JAX package's public helper, held to the
+    JAX one by tests/test_torch_batch.py."""
+    virtual_exprs = virtual_exprs or {}
+    return [None if s is None
+            else compile_filter(s, table, pool, virtual_exprs)
+            for s in specs]
+
+
+def eval_predicates(fns, env, consts) -> list:
+    """Evaluate compiled predicate fns over one shared env: a list of
+    bool masks (None for unfiltered legs), all from the same pass.
+    Uncalled in the port, as compile_predicates."""
+    return [None if fn is None else fn(env, consts) for fn in fns]
 
 
 # ---------------------------------------------------------------------------

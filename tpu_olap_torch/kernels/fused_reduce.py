@@ -38,6 +38,14 @@ on CPU tensors it runs `fused_reduce_ref`, the plain torch version (the
 program through `rowprog.evaluate`, then `index_add_` /
 `scatter_reduce_` in int64 over the selected rows). `launches` counts
 launches of the generated kernel.
+
+`fused_reduce_multi` runs N plans' legs in one launch for the batch
+executor (executor.batch): a kernel generated per batch composition from
+the legs' row functions (template `csrc/fused_reduce_multi_gen.cuh`,
+cached by the source's hash as B1's is), whose blocks serve one leg at a
+time, each leg getting exactly what `fused_reduce` gives it alone; its
+plain version is `fused_reduce_multi_ref`, and `multi_launches` counts
+its launches.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ INT64_LIMIT = 1 << 63               # sums accumulate exactly below this
 GROUP_CAP = 65536                   # the JAX package's factorized cap
 
 launches = 0                        # generated-kernel launches
+multi_launches = 0                  # multi-leg kernel launches
 
 
 def expr_int_bounds(expr, col_bounds):
@@ -236,27 +245,39 @@ def build_kernel(plan, table, device):
     at lowering (kept on plan._fused_program), so compile time falls in
     lower_ms and the first run only."""
     prog = program(plan, table)
-    reads = plan._fused_reads
     K = plan.total_groups
     if torch.device(device).type == "cuda":
         compiled(prog, K, device)
 
     def fn(env, valid, seg_mask, consts):
-        inputs = [None if kind == "base" else env[kind + "s"][name]
-                  for name, kind, _ in prog.slots]
-        sums, mins = fused_reduce(prog, inputs, valid, seg_mask, K)
-        res = {"_rows": sums[:, 0]}
-        for p, (kind, col, nn) in zip(plan.agg_plans, reads):
-            acc = torch_dtype(p.acc_dtype)
-            if kind in ("count", "sum"):
-                res[p.name] = sums[:, col].to(acc)
-                continue
-            v = mins[:, col]
-            res[p.name] = (-v if kind == "max" else v).to(acc)
-            res[f"_nn_{p.name}"] = sums[:, nn].to(torch.int32)
-        return res
+        sums, mins = fused_reduce(prog, program_inputs(prog, env), valid,
+                                  seg_mask, K)
+        return partials(plan, sums, mins)
 
     return fn
+
+
+def program_inputs(prog, env) -> list:
+    """The launch's inputs for `prog` from a kernel env: one stream per
+    slot, None for the base slot."""
+    return [None if kind == "base" else env[kind + "s"][name]
+            for name, kind, _ in prog.slots]
+
+
+def partials(plan, sums, mins) -> dict:
+    """The plan's partial dict (the generic reduce's contract) from the
+    kernel's outputs: "_rows", one [K] tensor per aggregation, and
+    "_nn_<name>" non-null counts for min/max."""
+    res = {"_rows": sums[:, 0]}
+    for p, (kind, col, nn) in zip(plan.agg_plans, plan._fused_reads):
+        acc = torch_dtype(p.acc_dtype)
+        if kind in ("count", "sum"):
+            res[p.name] = sums[:, col].to(acc)
+            continue
+        v = mins[:, col]
+        res[p.name] = (-v if kind == "max" else v).to(acc)
+        res[f"_nn_{p.name}"] = sums[:, nn].to(torch.int32)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -374,15 +395,7 @@ def _launch_gen(prog, inputs, valid, seg_mask, K):
         return sums, mins
     kern = compiled(prog, K, dev)
     data = prog.data_on(dev)
-    S, R = valid.shape
-    tile = rowgen.THREADS * rowgen.ROWS_PER_THREAD
-    tiles_per_seg = -(-R // tile)
-    n_tiles = S * tiles_per_seg
-    grid = min(kern.max_blocks, n_tiles)
-    # the shared table counts in 32 bits: no block may see 2^32 rows
-    if -(-n_tiles // grid) * tile >= 1 << 32:
-        raise ValueError(f"{valid.numel()} rows: a block would see 2^32 "
-                         "rows or more")
+    R, tiles_per_seg, n_tiles, grid = _grid(kern, valid)
     p = rowgen.Params()
     for i, t in enumerate(inputs):
         p.slot[i] = 0 if t is None else t.data_ptr()
@@ -393,10 +406,138 @@ def _launch_gen(prog, inputs, valid, seg_mask, K):
     p.data, p.sums, p.mins = data.data_ptr(), sums.data_ptr(), \
         mins.data_ptr()
     p.seg_rows, p.tiles_per_seg, p.n_tiles = R, tiles_per_seg, n_tiles
-    values = prog._device.get("consts")
-    if values is None:
-        values = prog._device["consts"] = rowgen.constants(prog)
+    values = _constants(prog)
     p.consts[:len(values)] = values
     kern.launch(grid, p, torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     return sums, mins
+
+
+def _constants(prog) -> list:
+    """rowgen.constants(prog), memoized on the program."""
+    values = prog._device.get("consts")
+    if values is None:
+        values = prog._device["consts"] = rowgen.constants(prog)
+    return values
+
+
+def _grid(kern, valid):
+    """(R, tiles per segment, tiles, blocks) of a launch over valid's
+    [S, R] rows; raises where a block would count 2^32 rows in its
+    32-bit shared counters."""
+    S, R = valid.shape
+    tile = rowgen.THREADS * rowgen.ROWS_PER_THREAD
+    tiles_per_seg = -(-R // tile)
+    n_tiles = S * tiles_per_seg
+    grid = min(kern.max_blocks, n_tiles)
+    if -(-n_tiles // grid) * tile >= 1 << 32:
+        raise ValueError(f"{valid.numel()} rows: a block would see 2^32 "
+                         "rows or more")
+    return R, tiles_per_seg, n_tiles, grid
+
+
+# ---------------------------------------------------------------------------
+# The multi-leg kernel: N plans' legs in one launch (the batch executor)
+
+
+def fused_reduce_multi(progs, inputs_per_leg, valid, seg_masks, Ks) -> list:
+    """N legs of fused_reduce in one launch: leg i is
+    (progs[i], inputs_per_leg[i], seg_masks[i], Ks[i]) over the shared
+    `valid`. Returns [(sums, mins)] per leg, each exactly what
+    fused_reduce gives for that leg alone.
+
+    CPU tensors run the plain version (fused_reduce_multi_ref); CUDA
+    tensors launch the batch composition's generated multi-leg kernel
+    once (compiled on first use, cached by its source), or raise."""
+    n = len(progs)
+    if n < 1 or not len(inputs_per_leg) == len(seg_masks) == len(Ks) == n:
+        raise ValueError(f"{n} programs, {len(inputs_per_leg)} input lists, "
+                         f"{len(seg_masks)} segment masks, {len(Ks)} Ks")
+    for args in zip(progs, inputs_per_leg, seg_masks, Ks):
+        prog, inputs, seg_mask, K = args
+        _check(prog, inputs, valid, seg_mask, K)
+    if valid.device.type == "cpu":
+        return fused_reduce_multi_ref(progs, inputs_per_leg, valid,
+                                      seg_masks, Ks)
+    if valid.device.type != "cuda":
+        raise ValueError(f"fused_reduce_multi runs on cuda or cpu, not "
+                         f"{valid.device}")
+    return _launch_multi(progs, inputs_per_leg, valid, seg_masks, Ks)
+
+
+def fused_reduce_multi_ref(progs, inputs_per_leg, valid, seg_masks,
+                           Ks) -> list:
+    """The plain version: each leg through fused_reduce_ref."""
+    return [fused_reduce_ref(p, i, valid, s, K)
+            for p, i, s, K in zip(progs, inputs_per_leg, seg_masks, Ks)]
+
+
+def compiled_multi(progs, Ks, device):
+    """The multi-leg kernel of one batch composition on `device`: its
+    generated source (rowgen.multi_kernel_source) compiled by NVRTC and
+    loaded by cuda_build.nvrtc_kernel, which caches it by the source's
+    hash, as B1's. The source holds no literal, so batches that differ
+    only in literals compile nothing. Raises if it does not compile or
+    load."""
+    from tpu_olap_torch.kernels import cuda_build
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return cuda_build.nvrtc_kernel(
+        rowgen.multi_kernel_source(progs, Ks), rowgen.MULTI_KERNEL,
+        rowgen.THREADS, rowgen.multi_smem(progs, Ks), index)
+
+
+def _launch_multi(progs, inputs_per_leg, valid, seg_masks, Ks) -> list:
+    global multi_launches
+    n = len(progs)
+    offsets, words = rowgen.multi_layout(progs)
+    if words > rowgen.MAX_MULTI_WORDS:
+        raise ValueError(f"{n} legs need {words} parameter words: one "
+                         f"multi-leg launch takes at most "
+                         f"{rowgen.MAX_MULTI_WORDS}")
+    dev = valid.device
+    # every leg's outputs are views of one int64 and one int32 buffer;
+    # the int64 one ends with the legs' tile counters (zero)
+    n_sums = [K * p.n_sum for p, K in zip(progs, Ks)]
+    n_mins = [K * (p.n_cols - p.n_sum) for p, K in zip(progs, Ks)]
+    sums_all = torch.zeros(sum(n_sums) + n, dtype=torch.int64, device=dev)
+    mins_all = torch.full((sum(n_mins),), MAX_VALUE, dtype=torch.int32,
+                          device=dev)
+    outs, a, b = [], 0, 0
+    for p, K, ns, nm in zip(progs, Ks, n_sums, n_mins):
+        outs.append((sums_all[a:a + ns].view(K, p.n_sum),
+                     mins_all[b:b + nm].view(K, p.n_cols - p.n_sum)))
+        a, b = a + ns, b + nm
+    if valid.numel() == 0:
+        return outs
+    kern = compiled_multi(progs, Ks, dev)
+    S, R = valid.shape
+    tile = rowgen.THREADS * rowgen.ROWS_PER_THREAD
+    tiles_per_seg = -(-R // tile)
+    n_tiles = S * tiles_per_seg
+    # a block may draw every tile of a leg: its 32-bit shared counters
+    # must hold all the rows
+    if n_tiles * tile >= 1 << 32:
+        raise ValueError(f"{valid.numel()} rows: a block could see 2^32 "
+                         "rows or more")
+    p = rowgen.multi_params(words)()
+    w = p.words
+    aligned = valid.data_ptr() % 16 == 0
+    for o, prog, inputs, seg_mask, (sums, mins) in zip(
+            offsets, progs, inputs_per_leg, seg_masks, outs):
+        ptrs = [0 if t is None else t.data_ptr() for t in inputs]
+        aligned &= all(ptrs[s] % 16 == 0 for s in rowgen.cone_slots(prog))
+        f = o + len(prog.slots)
+        values = _constants(prog)
+        w[o:f + rowgen.LEG_FIXED_WORDS + len(values)] = ptrs + [
+            prog.data_on(dev).data_ptr(), seg_mask.data_ptr(),
+            sums.data_ptr(), mins.data_ptr()] + [int(v) for v in values]
+    p.h.next = sums_all.data_ptr() + 8 * sum(n_sums)
+    p.h.valid = valid.data_ptr()
+    p.h.seg_rows, p.h.tiles_per_seg, p.h.n_tiles = R, tiles_per_seg, n_tiles
+    p.h.vec = int(aligned and R % rowgen.ROWS_PER_THREAD == 0)
+    kern.launch(min(kern.max_blocks, n * n_tiles), p,
+                torch.cuda.current_stream(dev).cuda_stream)
+    multi_launches += 1
+    return outs

@@ -254,6 +254,19 @@ def group_reduce(key, mask, env, plans, num_groups, consts):
     return out
 
 
+def group_reduce_batch(legs, consts_by_leg) -> list:
+    """N query legs over ONE column env: legs is a list of (key, mask,
+    env, plans, num_groups), each leg's key and mask computed from the
+    same resident streams (executor.batch runs each leg's
+    PhysicalPlan.front_half over the shared env). Returns N independent
+    partials dicts, each what group_reduce gives for that leg alone. In
+    a fused batch it serves the legs the multi-leg kernel does not take
+    (sketch aggregations; every leg under use_fused_reduce="never")."""
+    return [group_reduce(key, mask, env, plans, num_groups, consts)
+            for (key, mask, env, plans, num_groups), consts
+            in zip(legs, consts_by_leg)]
+
+
 def partials_radix(plans) -> int:
     """Per-group state width (in scalar slots) of a partial-aggregate
     dict: 1 for _rows, then each aggregation's unfinalized form — the HLL

@@ -54,6 +54,7 @@ against `rowprog.evaluate` without a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import NamedTuple
 
@@ -68,6 +69,9 @@ COMMON_SPLICE = "//@@ROW_COMMON@@"
 SPLICE = "//@@ROWGEN_PLAN@@"
 NAMESPACE = "rowgen_plan"      # the template's name for the plan's code
 KERNEL = "fused_reduce_gen"
+MULTI_TEMPLATE = CSRC / "fused_reduce_multi_gen.cuh"
+MULTI_KERNEL = "fused_reduce_multi_gen"
+MAX_LEGS = 64                  # legs of one multi-leg launch
 THREADS = 512                  # threads per block (the template's kThreads)
 ROWS_PER_THREAD = 16           # one 16-byte load of valid bytes
 ISIN_CHAIN = 8                 # IN lists up to this long become compares
@@ -431,16 +435,17 @@ def call_source(prog: rp.RowProgram) -> list:
     return L
 
 
-def _device_source(prog: rp.RowProgram, K: int) -> str:
-    """The plan's glue for the fused-reduce template: its shape as
+def _device_source(prog: rp.RowProgram, K: int,
+                   namespace: str = NAMESPACE) -> str:
+    """The plan's glue for a fused-reduce template: its shape as
     constants, the calls of the row function (`call_source`), and the
-    per-column reduce steps with literal table indexes. One group
-    (K = 1) reduces in registers and warp shuffles."""
+    per-column reduce steps with literal table indexes, in `namespace`.
+    One group (K = 1) reduces in registers and warp shuffles."""
     lay = layout(prog)
     n_min = prog.n_cols - prog.n_sum
     shared = table_bytes(prog, K) > 0
     one_group = K == 1
-    L = [f"namespace {NAMESPACE} {{",
+    L = [f"namespace {namespace} {{",
          f"constexpr long long kGroups = {K};",
          f"constexpr int kSum = {prog.n_sum};",
          f"constexpr int kMin = {n_min};",
@@ -523,7 +528,7 @@ def _device_source(prog: rp.RowProgram, K: int) -> str:
        "const unsigned* t32, const int* tmin, unsigned long long* sums, "
        "int* mins)", flush + ["(void)t64; (void)t32; (void)tmin; "
                               "(void)sums; (void)mins;"])
-    L.append(f"}}  // namespace {NAMESPACE}")
+    L.append(f"}}  // namespace {namespace}")
     return "\n".join(L) + "\n"
 
 
@@ -558,3 +563,166 @@ class Params(ctypes.Structure):
                 ("n_tiles", ctypes.c_longlong),
                 ("consts", ctypes.c_longlong * MAX_CONSTS),
                 ("vec", ctypes.c_int)]
+
+
+# ---------------------------------------------------------------------------
+# The multi-leg fused reduce: N plans' legs in one launch
+
+
+def leg_namespace(i: int) -> str:
+    return f"rowgen_leg{i}"
+
+
+def multi_smem(progs, Ks) -> int:
+    """Dynamic shared memory of a multi-leg launch: the largest table of
+    a leg that keeps it in shared memory (a block serves one leg at a
+    time; a leg's table lives there when it fits SMEM_TABLE_BYTES
+    alone, as in B1)."""
+    return max(table_bytes(p, K) for p, K in zip(progs, Ks))
+
+
+def _leg_source(i: int) -> str:
+    """Leg i's code: its row function and reduce glue in its own
+    namespace, then `Leg`, the traits struct through which the
+    template's per-leg helpers reach them."""
+    ns = leg_namespace(i)
+    q = f"::{ns}::"
+    fwd = (
+        ("void", "cone_load", "const void* const* s, long long i0, Cone& c",
+         "s, i0, c"),
+        ("bool", "row_vec", "const void* const* s, const long long* d, "
+         "const long long* k, long long i, const Cone& c, int r, RowOut& o",
+         "s, d, k, i, c, r, o"),
+        ("bool", "row_scalar", "const void* const* s, const long long* d, "
+         "const long long* k, long long i, RowOut& o", "s, d, k, i, o"),
+        ("void", "acc_init", "Acc& a", "a"),
+        ("void", "acc_take", "Acc& a, const RowOut& o", "a, o"),
+        ("void", "acc_spill", "Acc& a, unsigned long long* t64, "
+         "unsigned* t32, int* tmin", "a, t64, t32, tmin"),
+        ("void", "take_shared", "const RowOut& o, unsigned long long* t64, "
+         "unsigned* t32, int* tmin", "o, t64, t32, tmin"),
+        ("void", "take_global", "const RowOut& o, unsigned long long* sums, "
+         "int* mins", "o, sums, mins"),
+        ("void", "flush", "long long k, const unsigned long long* t64, "
+         "const unsigned* t32, const int* tmin, unsigned long long* sums, "
+         "int* mins", "k, t64, t32, tmin, sums, mins"))
+    L = [f"namespace {ns} {{", "struct Leg {"]
+    L += [f"  using {t} = {q}{t};" for t in ("Cone", "Acc", "RowOut")]
+    L += [f"  static constexpr {ty} {c} = {q}{c};" for ty, c in (
+        ("long long", "kGroups"), ("int", "kN64"), ("int", "kN32"),
+        ("int", "kNMin"), ("bool", "kShared"), ("bool", "kOneGroup"))]
+    for ret, name, sig, args in fwd:
+        L.append(f"  static __device__ __forceinline__ {ret} {name}({sig}) "
+                 f"{{ return {q}{name}({args}); }}")
+    L += ["};", f"}}  // namespace {ns}"]
+    return "\n".join(L) + "\n"
+
+
+def _leg_code(prog: rp.RowProgram, K: int, i: int) -> str:
+    """Leg i's whole code as the program at K groups: its row function,
+    reduce glue and traits, memoized on the program."""
+    key = ("multi-leg", K, i)
+    code = prog._device.get(key)
+    if code is None:
+        ns = leg_namespace(i)
+        code = prog._device[key] = row_source(prog, ns) \
+            + _device_source(prog, K, ns) + _leg_source(i)
+    return code
+
+
+def multi_layout(progs) -> tuple:
+    """(per leg: the offset of its arguments in the parameter block's
+    `words`; the words in all). A leg's words: its slot pointers, then
+    its data, segment mask, sums and mins pointers, then its kernel
+    constants (rowgen.constants)."""
+    offsets, w = [], 0
+    for p in progs:
+        offsets.append(w)
+        w += len(p.slots) + LEG_FIXED_WORDS + _n_consts(p)
+    return offsets, w
+
+
+def _n_consts(prog: rp.RowProgram) -> int:
+    n = prog._device.get("n_consts")
+    if n is None:
+        n = prog._device["n_consts"] = len(constants(prog))
+    return n
+
+
+def _multi_dispatch(progs) -> str:
+    """The glue over the legs: the launch's parameter block
+    `MultiParams` (MultiHead, then every leg's words) and `run`, which
+    sends a block to leg i's instance of the template's `leg_run` with
+    the leg's arguments read from the block at literal offsets."""
+    offsets, words = multi_layout(progs)
+    cases = []
+    for i, (p, o) in enumerate(zip(progs, offsets)):
+        f = o + len(p.slots)       # the leg's fixed words
+        cases.append(
+            f"    case {i}: {{\n"
+            "      const LegView v = {\n"
+            f"          reinterpret_cast<const void* const*>(p.words + {o}),\n"
+            f"          reinterpret_cast<const long long*>(p.words[{f}]),\n"
+            f"          reinterpret_cast<const unsigned char*>(p.words[{f + 1}]),"
+            "\n"
+            f"          reinterpret_cast<unsigned long long*>(p.words[{f + 2}]),"
+            "\n"
+            f"          reinterpret_cast<int*>(p.words[{f + 3}]),\n"
+            f"          p.words + {f + 4}}};\n"
+            f"      leg_run<::{leg_namespace(i)}::Leg>(v, p.h, p.h.next + {i}, "
+            "smem, slots, round);\n"
+            "      break;\n    }")
+    return ("namespace rowgen_multi {\n"
+            f"constexpr int kLegs = {len(progs)};\n"
+            "struct MultiParams {\n  rowgen::MultiHead h;\n"
+            f"  long long words[{max(1, words)}];\n}};\n"
+            "__device__ __forceinline__ void run(int leg, "
+            "const MultiParams& p, unsigned char* smem, "
+            "unsigned long long* slots, unsigned& round) {\n"
+            "  using namespace rowgen;\n"
+            "  switch (leg) {\n" + "\n".join(cases)
+            + "\n    default: break;\n  }\n"
+            "}\n}  // namespace rowgen_multi\n")
+
+
+def multi_kernel_source(progs, Ks) -> str:
+    """The whole NVRTC source of the multi-leg kernel of one batch
+    composition: each leg's row function, reduce glue and traits in its
+    own namespace, and the glue over the legs, spliced into
+    MULTI_TEMPLATE. Like kernel_source it holds none of the legs'
+    literals, so batches that differ only in literals share it."""
+    if not 1 <= len(progs) <= MAX_LEGS:
+        raise ValueError(f"{len(progs)} legs: a multi-leg launch takes 1 "
+                         f"to {MAX_LEGS}")
+    parts = [_leg_code(prog, K, i)
+             for i, (prog, K) in enumerate(zip(progs, Ks))]
+    parts.append(_multi_dispatch(progs))
+    return splice(MULTI_TEMPLATE, "".join(parts))
+
+
+# a leg's words after its slot pointers: data, seg_mask, sums, mins
+LEG_FIXED_WORDS = 4
+# the kernel parameter block of an sm_90 kernel built with CUDA 12.1 or
+# later, and the bytes of `MultiHead` at its start
+MULTI_PARAM_BYTES = 32764
+MULTI_HEAD_BYTES = 48
+MAX_MULTI_WORDS = (MULTI_PARAM_BYTES - MULTI_HEAD_BYTES) // 8
+
+
+class MultiHead(ctypes.Structure):
+    """`MultiHead` in csrc/fused_reduce_multi_gen.cuh."""
+    _fields_ = [("next", ctypes.c_void_p),
+                ("valid", ctypes.c_void_p),
+                ("seg_rows", ctypes.c_longlong),
+                ("tiles_per_seg", ctypes.c_longlong),
+                ("n_tiles", ctypes.c_longlong),
+                ("vec", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=None)
+def multi_params(words: int) -> type:
+    """The multi-leg kernel's one argument for a composition of `words`
+    words (`rowgen_multi::MultiParams` in its generated source)."""
+    return type(f"MultiParams{words}", (ctypes.Structure,), {
+        "_fields_": [("h", MultiHead),
+                     ("words", ctypes.c_longlong * max(1, words))]})
