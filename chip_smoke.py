@@ -121,7 +121,29 @@ Phases, each printing its own line; any failure exits nonzero:
      union window's bytes read once), its plain version and its legs'
      B1 launches one after another (the yardstick: no torch call
      computes a batch).
-The phases run in the order 1-4, 10, 5-8, 11, 9. Every torch.profiler
+  12. caches and cubes on the SF1 engine: (a) tier 1 of the result
+     cache (segment_cache_enabled) under a month-granularity timeseries
+     and q2.1, each over three year partitions sliding by one, three
+     steps: every step == the statement with caches off exactly, the
+     segments computed == the new ones, one launch of the
+     segment-extended B1 per step (counts set to 0 just before), each
+     launch replayed against its plain version (exact), warm step p50s
+     against caches off, and the kernel's cold and warm time against
+     its bound over the computed segments, the plain version and one
+     index_add_; (b) tier 2 (result_cache_enabled): the 13 queries
+     twice, the second pass served from the cache with no launch of
+     any wrapper, no host CUDA launch or copy call under torch.profiler
+     and no copy, frames equal; hit p50s; (c) an engine over the same
+     segments with hbm_budget_bytes at 40% of the 13 queries' resident
+     bytes: answers == the unbudgeted engine's, evictions > 0,
+     torch.cuda.memory_allocated never more than the budget plus the
+     largest single query's working set over its start, p50s against
+     the unbudgeted engine; (d) the 13 queries profiled, the advisor's
+     specs (cube_specs_from_workload) built with create_cube (build
+     time, B1 launches, stored bytes), then the 13 with the rewrite on:
+     cube serves by metrics["path"] == "cube" (at least one), every
+     answer == the base path exactly, per-query base and cube p50s.
+The phases run in the order 1-4, 10, 5-8, 11, 12, 9. Every torch.profiler
 reading stands only when
 its profile holds one device activity for each kernel launch, copy and
 fill the host issued in it (`profiled`): the profiler now and then drops
@@ -1331,6 +1353,383 @@ def batch_phase(eng, reps, tag, flush_l2):
 
 # -- phase 9: the TPC-H shapes over a parquet-registered fact ---------------
 
+# -- 12. caches and cubes ---------------------------------------------------
+
+TIER1_YEARS = ((1993, 1996), (1994, 1997), (1995, 1998))  # slides a year
+TIER1_MONTHS = (
+    "SELECT date_trunc('month', lo_orderdate_ts) AS m, "
+    "sum(lo_revenue) AS revenue, count(*) AS n FROM lineorder WHERE "
+    "lo_orderdate_ts >= TIMESTAMP '{lo}-01-01' AND "
+    "lo_orderdate_ts < TIMESTAMP '{hi}-01-01' "
+    "GROUP BY date_trunc('month', lo_orderdate_ts) ORDER BY m")
+
+
+def tier1_statements(ssb):
+    """{name: [SQL per step]}: a month-granularity timeseries and q2.1,
+    each over a window of three year partitions that slides by one."""
+    q21 = ssb.QUERIES["q2.1"]
+    return {
+        "months": [TIER1_MONTHS.format(lo=lo, hi=hi)
+                   for lo, hi in TIER1_YEARS],
+        "q2.1": [q21.replace(
+            "WHERE ", f"WHERE lo_orderdate_ts >= TIMESTAMP '{lo}-01-01' "
+            f"AND lo_orderdate_ts < TIMESTAMP '{hi}-01-01' AND ", 1)
+            for lo, hi in TIER1_YEARS]}
+
+
+def ssb_engine(seg, tables, **cfg):
+    """An Engine over the SF1 engine's segments (no second ingest) and the
+    four fallback-only dimension tables."""
+    from tpu_olap_torch import Engine
+    from tpu_olap_torch.bench import ssb
+    e = Engine(**cfg)
+    e.register_table("lineorder", None, time_column=ssb.TIME_COL,
+                     star_schema=ssb.star_schema(), segments=seg)
+    for t in ("date", "customer", "supplier", "part"):
+        e.register_table(t, tables[t], accelerate=False)
+    return e
+
+
+def host_cuda_calls(run) -> dict:
+    """{CUDA runtime/driver call: count} of the kernel launches and
+    copies the host issued while `run()` ran (torch.profiler, CPU
+    activity, which records every such call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key.startswith(
+                ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy"))}
+
+
+def seg_kernel_times(a, sums, max_err, launches, tag, flush_l2) -> dict:
+    """The segment-extended B1 at one tier-1 launch's inputs `a` (its
+    outputs' sums from the replay): device time warm and cold against
+    its bound over the computed segments, the plain version, and one
+    torch index_add_ over the selected rows' extended keys. Prints one
+    line; returns the kernel's JSON entry."""
+    import torch
+    from tpu_olap_torch.kernels import fused_reduce as fr
+    from tpu_olap_torch.kernels import rowprog
+    prog, inputs, valid, seg_mask, K, lo, W = a
+    kept = torch.nonzero(seg_mask).flatten().tolist()
+    c_lo, c_hi = min(kept), max(kept) + 1   # the computed segments
+    sl = slice(c_lo, c_hi)
+    bytes_ms, ops_ms, nbytes = kernel_bound(
+        prog, [None if t is None else t[sl] for t in inputs], valid[sl],
+        seg_mask[sl], W * K, sums)
+    bound = max(bytes_ms, ops_ms)
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    warm, cold, hows = [], [], {}
+    for _ in range(2):
+        for runs, between in ((warm, None), (cold, flush_l2)):
+            ms, how = timed(lambda: fr.fused_reduce_seg(*a), 20, GEN_KERNEL,
+                            between)
+            runs.append(ms)
+            hows[how] = None
+    gen_ms = sum(cold) / 2
+    plain_ms, plain_how = timed(
+        lambda: fr.fused_reduce_ref(prog, inputs, valid, seg_mask, K,
+                                    (lo, W)), 5)
+    S, R = valid.shape
+    base = (valid & seg_mask[:, None]).reshape(-1)
+    regs = rowprog.evaluate(prog, inputs, base.numel(), "cuda")
+    key = regs[prog.key_reg]
+    seg_ids = torch.arange(S, device="cuda").repeat_interleave(R)
+    sel = base & (regs[prog.mask_reg] != 0) & (key >= 0) & (key < K)
+    k_sel = (key + (seg_ids - lo) * K)[sel]
+    src = torch.stack(
+        [torch.ones_like(k_sel) if v < 0 else regs[v][sel]
+         for v in prog.val_regs[:prog.n_sum]], 1)
+    out = torch.zeros((W * K, prog.n_sum), dtype=torch.int64, device="cuda")
+    lib_ms, lib_how = timed(lambda: out.index_add_(0, k_sel, src), 20)
+    kern = fr.compiled_seg(prog, K, W, "cuda")
+    n_sel = int(sums[:, 0].sum())
+    del regs, key, seg_ids, sel, src, out
+    print(f"[12 kernel] segment-extended B1 at tier-1 q2.1 step 1 (window "
+          f"[{lo}, {lo + W}) of {S} segments, computed {c_lo}-{c_hi - 1}, "
+          f"K={K}, W*K={W * K} groups, selected {n_sel}): warm L2 "
+          f"{warm[0]:.4f} / {warm[1]:.4f} ms, cold L2 {cold[0]:.4f} / "
+          f"{cold[1]:.4f} ms ({'; '.join(hows)}) | bound {bound:.4f} ms "
+          f"({nbytes} B, {by}; bytes {bytes_ms:.4f}, operations "
+          f"{ops_ms:.4f}) = {gen_ms / bound:.1f}x the bound cold, "
+          f"{sum(warm) / 2 / bound:.1f}x warm | plain {plain_ms:.4f} ms "
+          f"({plain_how}) | index_add_ over the selected rows' extended "
+          f"keys {lib_ms:.4f} ms ({lib_how}) | {plan_report(kern)} {tag}",
+          flush=True)
+    return {"name": "fused_reduce_seg", "route": "cuda",
+            "source": "tpu_olap_torch/csrc/fused_reduce_gen.cuh",
+            "replaces": "tpu_olap/kernels/pallas_reduce.py:536",
+            "launches": launches, "max_abs_err": max_err, "ms": gen_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "at": "tier1 q2.1"}
+
+
+def p50_ms(eng, q, reps) -> float:
+    import numpy as np
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        eng.sql(q)
+        ts.append((time.perf_counter() - t) * 1000)
+    return float(np.median(ts))
+
+
+def cache_phase(eng, tables, base_frames, reps, tag, flush_l2) -> dict:
+    """Phase 12 on the SF1 engine: (a) tier 1 over a sliding window, (b)
+    tier 2 over the 13 queries, (c) an HBM budget under the working set,
+    (d) the advisor's cubes. Returns the segment-extended kernel's JSON
+    entry."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from tpu_olap_torch.bench import ssb
+    from tpu_olap_torch.bench.parity import assert_frame_parity
+    from tpu_olap_torch.cubes import cube_specs_from_workload
+    from tpu_olap_torch.kernels import fused_reduce as fr
+    from tpu_olap_torch.kernels import row_mask
+    seg = eng.catalog.get("lineorder").segments
+    cfg = eng.config
+
+    # (a) tier 1: the uncached segments in one segment-extended launch
+    stmts = tier1_statements(ssb)
+    off = {}
+    for name, steps in stmts.items():
+        for i, q in enumerate(steps):
+            off[(name, i)] = eng.sql(q)  # caches off: the reference
+    cfg.segment_cache_enabled, cfg.segment_cache_min_rows = True, 0
+    calls, current, real = {}, [None], fr.fused_reduce_seg
+
+    def record(*a):
+        calls[current[0]] = a
+        return real(*a)
+    fr.fused_reduce_seg = record
+    fr.seg_launches = fr.launches = 0
+    per_step, rows_a = {}, []
+    try:
+        for name, steps in stmts.items():
+            prev = set()
+            for i, q in enumerate(steps):
+                current[0] = (name, i)
+                before = fr.seg_launches
+                t = time.perf_counter()
+                got = eng.sql(q)
+                wall = (time.perf_counter() - t) * 1000
+                m = eng.runner.last_metrics
+                plan = eng.runner._lower_cached(eng.planner.plan(q).query,
+                                                seg)
+                new = sorted(set(plan.pruned_ids) - prev)
+                prev = set(plan.pruned_ids)
+                per_step[(name, i)] = fr.seg_launches - before
+                pd.testing.assert_frame_equal(got, off[(name, i)])
+                if m.get("route") != "segment_cache" \
+                        or m.get("segments_computed") != len(new):
+                    fail(f"tier 1 {name} step {i}: route {m.get('route')}, "
+                         f"{m.get('segments_computed')} segments computed "
+                         f"where {len(new)} are new")
+                rows_a.append(
+                    f"{name} step {i} ({TIER1_YEARS[i][0]}-"
+                    f"{TIER1_YEARS[i][1] - 1}): cached "
+                    f"{m.get('segments_cached')}, computed "
+                    f"{m.get('segments_computed')}, window "
+                    f"{m.get('segments_window')}, copies "
+                    f"{m['host_copies']}, wall {wall:.3f} ms")
+        torch.cuda.synchronize()
+        seg_launches, b1_launches = fr.seg_launches, fr.launches
+    finally:
+        fr.fused_reduce_seg = real
+    if any(n != 1 for n in per_step.values()) or b1_launches:
+        fail(f"tier 1: segment-extended launches per step "
+             f"{list(per_step.values())}, plain B1 launches {b1_launches}")
+    if len(calls) != len(per_step):
+        fail(f"tier 1: {len(calls)} steps launched of {len(per_step)}")
+    max_err = 0
+    for i, a in calls.items():
+        got = fr.fused_reduce_seg(*a)
+        prog, inputs, valid, seg_mask, K, lo, W = a
+        want = fr.fused_reduce_ref(prog, inputs, valid, seg_mask, K,
+                                   (lo, W))
+        torch.cuda.synchronize()
+        if any(g.shape != w.shape or g.dtype != w.dtype
+               for g, w in zip(got, want)):
+            fail(f"segment-extended kernel output shapes differ at call {i}")
+        err = max_abs_diff(got, want)
+        if err:
+            fail(f"segment-extended kernel disagrees with the plain version "
+                 f"at call {i}: max |kernel - plain| = {err}")
+        max_err = max(max_err, err)
+    for line in rows_a:
+        print(f"[12 tier1] {line} {tag}", flush=True)
+    # step timings: each step's statement served warm (its new segments
+    # cached by the run above) against the same statement with caches off
+    for name, steps in stmts.items():
+        on = [p50_ms(eng, q, reps) for q in steps]
+        cfg.segment_cache_enabled = False
+        no = [p50_ms(eng, q, reps) for q in steps]
+        cfg.segment_cache_enabled = True
+        print(f"[12 tier1] {name}: every step == caches off exactly; one "
+              f"segment-extended launch per step ({seg_launches} in all, "
+              f"no plain B1 launch); replayed against the plain version: "
+              f"max |kernel - plain| = {max_err}; p50 all segments cached "
+              f"{', '.join(f'{x:.3f}' for x in on)} ms vs caches off "
+              f"{', '.join(f'{x:.3f}' for x in no)} ms {tag}", flush=True)
+    # the kernel at q2.1's second step: the one new year's segments
+    a = calls[("q2.1", 1)]
+    row = seg_kernel_times(a, fr.fused_reduce_seg(*a)[0], max_err,
+                           seg_launches, tag, flush_l2)
+    cfg.segment_cache_enabled = False
+    eng.runner.result_cache.clear()
+
+    # (b) tier 2: a repeated pass launches nothing and copies nothing
+    cfg.result_cache_enabled = True
+    first = {n: eng.sql(q) for n, q in ssb.QUERIES.items()}
+    fr.launches = fr.seg_launches = fr.multi_launches = 0
+    row_mask.launches = 0
+    hits, metrics = {}, {}
+
+    def second_pass():
+        for n, q in ssb.QUERIES.items():
+            hits[n] = eng.sql(q)
+            metrics[n] = dict(eng.runner.last_metrics)
+    api = host_cuda_calls(second_pass)
+    counts = (fr.launches, fr.seg_launches, fr.multi_launches,
+              row_mask.launches)
+    for n in ssb.QUERIES:
+        pd.testing.assert_frame_equal(hits[n], first[n])
+        assert_frame_parity(hits[n], base_frames[n], label=f"tier 2 {n}")
+        m = metrics[n]
+        if m.get("route") != "cache" or m.get("host_copies") != 0:
+            fail(f"tier 2 {n}: route {m.get('route')}, "
+                 f"{m.get('host_copies')} copies")
+    if any(counts) or any(api.values()):
+        fail(f"tier 2 hits launched kernels or copied: wrapper counts "
+             f"{counts}, host CUDA calls {api}")
+    hit_p50 = {n: p50_ms(eng, q, reps) for n, q in ssb.QUERIES.items()}
+    print(f"[12 tier2] 13/13 repeats served from the full-result cache == "
+          f"the first pass exactly; kernel launches 0 (B1, segment, "
+          f"multi-leg, row-mask wrappers), host CUDA launch and copy calls "
+          f"under torch.profiler {sum(api.values())}, copies 0; hit p50 "
+          f"{float(np.median(list(hit_p50.values()))):.4f} ms (per query "
+          f"{', '.join(f'{n} {v:.4f}' for n, v in hit_p50.items())}) {tag}",
+          flush=True)
+    cfg.result_cache_enabled = False
+    eng.runner.result_cache.clear()
+
+    # (c) an HBM budget under the 13 queries' working set
+    free = ssb_engine(seg, tables, device=cfg.device)
+    solo = {}
+    for n, q in ssb.QUERIES.items():
+        # each query's working set: the peak it adds to an empty engine
+        free.clear_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        free.sql(q)
+        torch.cuda.synchronize()
+        solo[n] = torch.cuda.max_memory_allocated() - m0
+    free_frames = {n: free.sql(q) for n, q in ssb.QUERIES.items()}
+    resident = free.runner.device_bytes()
+    budget = int(0.4 * resident)
+    tight = ssb_engine(seg, tables, device=cfg.device,
+                       hbm_budget_bytes=budget)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    over, first_wall = 0, 0.0
+    for n, q in ssb.QUERIES.items():
+        t = time.perf_counter()
+        got = tight.sql(q)
+        torch.cuda.synchronize()
+        first_wall += (time.perf_counter() - t) * 1000
+        over = max(over, torch.cuda.max_memory_allocated() - m0)
+        pd.testing.assert_frame_equal(got, free_frames[n])
+        assert_frame_parity(got, base_frames[n], label=f"budget {n}")
+    ledger = tight.runner._ledger
+    if ledger.evictions < 1:
+        fail(f"budget {budget} B of {resident} B resident: no eviction")
+    if over > budget + max(solo.values()):
+        fail(f"budgeted engine allocated {over} B over its start, past the "
+             f"budget {budget} B plus the largest working set "
+             f"{max(solo.values())} B")
+    p_free, p_tight = {}, {}
+    for n, q in ssb.QUERIES.items():
+        p_free[n] = p50_ms(free, q, reps)
+        p_tight[n] = p50_ms(tight, q, reps)
+    print(f"[12 budget] hbm_budget_bytes {budget} (40% of the 13 queries' "
+          f"{resident} resident bytes): 13/13 answers == the unbudgeted "
+          f"engine's exactly; evictions {ledger.evictions}, bytes in use "
+          f"{ledger.bytes_in_use}, ledger high watermark "
+          f"{ledger.high_watermark}; torch.cuda.memory_allocated peak "
+          f"{over} B over the start <= budget + the largest working set "
+          f"({max(solo, key=solo.get)} {max(solo.values())} B); the 13 in "
+          f"turn, evicting, {first_wall:.1f} ms; p50 (a query's repeats "
+          f"find its stacks resident) budgeted vs unbudgeted "
+          f"{', '.join(f'{n} {p_tight[n]:.3f}/{p_free[n]:.3f}' for n in p_free)}"
+          f" ms {tag}", flush=True)
+    for e in (free, tight):
+        e.clear_cache()
+    del free, tight, free_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) cubes from the advisor over the 13 queries' profile
+    cfg.cube_auto_refresh = False
+    cfg.cube_rewrite_enabled = False
+    eng.runner.workload.clear()
+    for _ in range(2):
+        for q in ssb.QUERIES.values():
+            eng.sql(q)
+    base_p50 = {n: p50_ms(eng, q, reps) for n, q in ssb.QUERIES.items()}
+    specs, notes = cube_specs_from_workload(eng.runner.workload.snapshot(),
+                                            eng, top=len(ssb.QUERIES))
+    built = []
+    for sp in specs:
+        fr.launches = 0
+        t = time.perf_counter()
+        try:
+            e = eng.create_cube(sp)
+        except Exception as ex:  # noqa: BLE001 — reported per spec
+            print(f"[12 cube] {sp.name} dims {list(sp.dimensions)} @ "
+                  f"{sp.granularity}: build failed after "
+                  f"{(time.perf_counter() - t) * 1000:.1f} ms: "
+                  f"{type(ex).__name__}: {ex} {tag}", flush=True)
+            continue
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1000
+        built.append(sp.name)
+        bm = e.build_metrics
+        print(f"[12 cube] {sp.name} dims {list(sp.dimensions)} @ "
+              f"{sp.granularity}: {e.data.n_rows} rows, build {ms:.1f} ms "
+              f"(registry {e.build_ms:.1f} ms), route {bm.get('route')}, "
+              f"B1 launches {fr.launches}, copies {bm.get('host_copies')}, "
+              f"stored {e.storage_bytes} B + sketches "
+              f"{e.data.sketch_bytes} B {tag}", flush=True)
+    if not built:
+        fail(f"no cube built from {len(specs)} specs: {notes}")
+    cfg.cube_rewrite_enabled = True
+    served, cube_p50 = [], {}
+    for n, q in ssb.QUERIES.items():
+        got = eng.sql(q)
+        if eng.runner.last_metrics.get("path") == "cube":
+            served.append(n)
+        pd.testing.assert_frame_equal(got, base_frames[n])
+        cube_p50[n] = p50_ms(eng, q, reps)
+    if not served:
+        fail("no SSB query was served from a cube")
+    print(f"[12 cubes] {len(built)} cubes built of {len(specs)} specs; "
+          f"served from a cube: {served} ({len(served)}/13), every answer "
+          f"== the base path exactly; p50 base vs cube "
+          f"{', '.join(f'{n} {base_p50[n]:.3f}/{cube_p50[n]:.3f}' for n in base_p50)}"
+          f" ms; advisor notes {len(notes)} {tag}", flush=True)
+    for name in built:
+        eng.drop_cube(name)
+    cfg.cube_rewrite_enabled = False
+    eng.cubes.stop(join=True)
+    return row
+
+
 def uninlined_fallback(eng, sql):
     """The port's pandas fallback over `sql` with nothing on the device:
     the statement planned without the subquery hook (so uncorrelated
@@ -1979,6 +2378,14 @@ def main():
     print(f"[11 batch] phase 11 took {time.perf_counter() - t:.1f} s",
           flush=True)
 
+    # -- 12. caches and cubes -----------------------------------------------
+    t = time.perf_counter()
+    rows.append(cache_phase(
+        eng, tables, {n: frames[("auto", n)] for n in ssb.QUERIES},
+        args.reps, tag, flush_l2))
+    print(f"[12 cache] phase 12 took {time.perf_counter() - t:.1f} s",
+          flush=True)
+
     rows += [sf10_row, sf10_batch_row]
 
     # the SF1 engine's columns leave the card before phase 9
@@ -1995,7 +2402,8 @@ def main():
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"kernels": [r for r in rows if r["at"] in (
-        "q2.1", "q2.1 SF10", "scan A", "batch SF1", "batch SF10")]}))
+        "q2.1", "q2.1 SF10", "scan A", "batch SF1", "batch SF10",
+        "tier1 q2.1")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

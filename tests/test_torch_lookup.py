@@ -102,12 +102,11 @@ def test_drop_table_as_in_jax():
 
 def test_engine_surface_left_to_later_items():
     """The JAX Engine's methods the port still lacks are exactly those of
-    ROADMAP queue A items 11 (cubes), 12 (ingest, resilience) and 14
-    (tracing, history, sys tables)."""
+    ROADMAP queue A items 12 (ingest, resilience) and 14 (tracing,
+    history, sys tables)."""
     def names(cls):
         return {n for n in dir(cls) if not n.startswith("__")}
     later = {
-        11: {"create_cube", "drop_cube"},
         12: {"append", "compact_now", "checkpoint_now", "close",
              "_observe_failure", "_wal_lag_probe"},
         14: {"history", "counters", "_sql_traced", "_sql_traced_inner",

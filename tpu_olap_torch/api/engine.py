@@ -3,7 +3,9 @@ DefaultSource OPTIONS analog) from pandas, Arrow or parquet, the SQL entry
 point, the raw-IR passthrough, paged Select, EXPLAIN and the statement
 verbs of the reference's extended parser (`CLEAR DRUID CACHE`, `EXPLAIN
 DRUID REWRITE`, `ON DRUID DATASOURCE … EXECUTE QUERY`, `SEARCH DRUID
-DATASOURCE`).
+DATASOURCE`), and the rollup-cube DDL (`CREATE DRUID CUBE … ON …`,
+`CREATE DRUID CUBES FROM '<file>'`, `DROP DRUID CUBE`, `REFRESH DRUID
+CUBES`).
 
 Statements the planner rewrites run on the device path. The pandas
 fallback interpreter (`planner.fallback`) serves a statement in three
@@ -14,9 +16,11 @@ path — an NVRTC compile error, a launch or CUDA error, anything else
 `runner.execute` raises — propagates to the caller: nothing reroutes a
 query off the device. Each fallback answer records its reason in
 `last_plan.fallback_reason` and `runner.last_metrics["route"] ==
-"fallback"`. Verbs of subsystems not ported yet (cube DDL, INSERT,
-COMPACT, CHECKPOINT, EXPLAIN ANALYZE) raise `NotYetPorted`, naming the
-ROADMAP item.
+"fallback"`. Before the device path, a rewritten aggregate that a
+materialized rollup cube covers is served by folding the cube's stored
+partials on the host (planner.cuberewrite; route "cube"). Verbs of
+subsystems not ported yet (INSERT, COMPACT, CHECKPOINT, EXPLAIN ANALYZE)
+raise `NotYetPorted`, naming the ROADMAP item.
 
 `sql_batch` runs several statements as one submission: rewritten
 statements against one table share scans (executor.batch), and the
@@ -36,6 +40,7 @@ import numpy as np
 import pandas as pd
 
 from tpu_olap_torch.catalog import Catalog, StarSchema, TableEntry
+from tpu_olap_torch.cubes import CubeRegistry
 from tpu_olap_torch.executor.config import EngineConfig
 from tpu_olap_torch.executor.dimplan import UnsupportedDimension
 from tpu_olap_torch.executor.runner import (QueryResult, QueryRunner,
@@ -47,7 +52,9 @@ from tpu_olap_torch.kernels.filtereval import UnsupportedFilter
 from tpu_olap_torch.kernels.groupby import UnsupportedAggregation
 from tpu_olap_torch.kernels.timebucket import UnsupportedGranularity
 from tpu_olap_torch.planner import DruidPlanner
+from tpu_olap_torch.planner.cuberewrite import try_serve_cube
 from tpu_olap_torch.planner.fallback import execute_fallback
+from tpu_olap_torch.resilience.errors import UserError
 from tpu_olap_torch.segments.ingest import (DEFAULT_BLOCK_ROWS, ingest_arrow,
                                             ingest_parquet_stream)
 
@@ -88,6 +95,8 @@ class Engine:
         # part of a statement the interpreter serves — route it back
         # through the statement executor (fallback._run_inner_stmt)
         self.catalog.device_runner = self._run_stmt
+        # materialized rollup cubes (tpu_olap_torch.cubes)
+        self.cubes = CubeRegistry(self)
 
     # ------------------------------------------------------- registration
 
@@ -191,7 +200,15 @@ class Engine:
                            time_column=time_column, star=star,
                            options=dict(options), **pq_fields)
         self.catalog.register(entry)
-        self.runner.clear_cache(name)
+        # the fresh TableSegments took the next generation, orphaning
+        # both result-cache tiers' entries for this name at key level;
+        # clear_cache purges them eagerly with the resident stacks
+        with self.device_lock:
+            self.runner.clear_cache(name)
+        # cube cascade: rollups over this table are now stale (the
+        # rewrite pass stops serving them at its generation check) and
+        # the maintainer wakes to rebuild them
+        self.cubes.on_table_registered(name)
         return entry
 
     def register_lookup(self, name: str, mapping: dict):
@@ -244,6 +261,13 @@ class Engine:
             out = self._try_grouping_sets_union(plan)
             if out is not None:
                 return out
+        if plan.rewritten and self.cubes.active:
+            # a covered aggregate is served by folding stored cube rows
+            # instead of scanning the base table; None falls through to
+            # the device path, never an error
+            res = try_serve_cube(self, plan)
+            if res is not None:
+                return self._frame_from(plan, res)
         if plan.rewritten:
             try:
                 res = self.runner.execute(plan.query, plan.entry.segments)
@@ -368,6 +392,7 @@ class Engine:
         outs: list = [None] * len(queries)
         plans: dict[int, object] = {}
         groups: dict[str, list[int]] = {}
+        metrics: list = [{} for _ in queries]
         qids = [self._new_query_id() for _ in queries]
         self._nested = []
         for i, q in enumerate(queries):
@@ -375,11 +400,20 @@ class Engine:
             if verb is not None:
                 outs[i], qids[i] = verb(self), "-"
                 continue
-            plan = plans[i] = self.planner.plan(q)
+            plan = self.planner.plan(q)
+            if plan.rewritten and self.cubes.active:
+                # cube-covered statements are served at once and never
+                # join a fused base-table scan they do not need
+                res = try_serve_cube(self, plan)
+                if res is not None:
+                    outs[i] = self._frame_from(plan, res)
+                    metrics[i] = res.metrics
+                    self.last_plan = plan
+                    continue
+            plans[i] = plan
             if plan.rewritten and \
                     getattr(plan.stmt, "grouping_sets", None) is None:
                 groups.setdefault(plan.entry.name, []).append(i)
-        metrics: list = [{} for _ in queries]
         for name, idxs in groups.items():
             if len(idxs) < 2:
                 continue
@@ -463,13 +497,32 @@ class Engine:
 
     def drop_table(self, name: str):
         """DROP the datasource: purge its resident columns, memoized
-        plans and cap hints, then unregister it. A later registration
-        under the same name starts from nothing. The JAX package's
-        ingest and cube cascades come with their subsystems (ROADMAP
-        queue A items 12 and 11)."""
+        plans, cap hints and both result-cache tiers, unregister it, and
+        drop the cubes over it with their storage tables. A later
+        registration under the same name starts from nothing. The JAX
+        package's ingest cascade comes with real-time ingest (ROADMAP
+        queue A item 12)."""
         with self.device_lock:
             self.runner.clear_cache(name)
         self.catalog.drop(name)
+        self.cubes.on_table_dropped(name)
+
+    # -------------------------------------------------------------- cubes
+
+    def create_cube(self, spec):
+        """Materialize a rollup cube. `spec` is a CubeSpec or its JSON
+        dict: {name, datasource, dimensions, granularity,
+        aggregations[, virtualColumns]} — the payload `CREATE DRUID
+        CUBES FROM '<file>'` reads and `cube_specs_from_workload`
+        writes. Builds synchronously on the device; returns the
+        registry entry. A failed build raises and is recorded on the
+        entry."""
+        return self.cubes.create(spec)
+
+    def drop_cube(self, name: str) -> bool:
+        """DROP DRUID CUBE analog: unregister the cube and its backing
+        segment table. Returns False when no such cube exists."""
+        return self.cubes.drop(name)
 
 
 # --------------------------------------------------------------------------
@@ -487,11 +540,22 @@ _EXEC_RE = re.compile(
 _SEARCH_RE = re.compile(
     r"^\s*search\s+druid\s+datasource\s+(\w+)\s+for\s+'((?:[^']|'')*)'"
     r"(?:\s+in\s+([\w\s,]+?))?(?:\s+limit\s+(\d+))?\s*;?\s*$", re.I)
+# rollup-cube DDL: CREATE DRUID CUBE <name> ON <table> [DIMENSIONS (a, b)]
+# [GRANULARITY g] AGGREGATES (sum(x), ...); CREATE DRUID CUBES FROM
+# '<specs.json>'; DROP DRUID CUBE <name>; REFRESH DRUID CUBES
+_CREATE_CUBE_RE = re.compile(
+    r"^\s*create\s+druid\s+cube\s+(\w+)\s+on\s+(\w+)\s+(.*?)\s*;?\s*$",
+    re.I | re.S)
+_CREATE_CUBES_FROM_RE = re.compile(
+    r"^\s*create\s+druid\s+cubes\s+from\s+'((?:[^']|'')+)'\s*;?\s*$",
+    re.I)
+_DROP_CUBE_RE = re.compile(
+    r"^\s*drop\s+druid\s+cube\s+(\w+)\s*;?\s*$", re.I)
+_REFRESH_CUBES_RE = re.compile(
+    r"^\s*refresh\s+druid\s+cubes\s*;?\s*$", re.I)
 # verbs of subsystems the port does not have yet: (pattern, what, where
 # the ROADMAP queues it)
 _NOT_PORTED = (
-    (re.compile(r"^\s*(create|drop|refresh)\s+druid\s+cubes?\b", re.I),
-     "rollup-cube DDL", "queue A item 11 (caches and cubes)"),
     (re.compile(r"^\s*insert\s+into\s", re.I),
      "INSERT (real-time ingest)", "queue A item 12 (ingest)"),
     (re.compile(r"^\s*compact\s+druid\s+table\b", re.I),
@@ -523,6 +587,20 @@ def _match_verb(query: str):
             if m.group(3) else ()
         limit = int(m.group(4)) if m.group(4) else 1000
         return lambda eng: _run_search_verb(eng, ds, pat, dims, limit)
+    m = _CREATE_CUBE_RE.match(query)
+    if m:
+        name, base, clauses = m.group(1), m.group(2), m.group(3)
+        return lambda eng: _run_create_cube(eng, name, base, clauses)
+    m = _CREATE_CUBES_FROM_RE.match(query)
+    if m:
+        path = m.group(1).replace("''", "'")
+        return lambda eng: _run_create_cubes_from(eng, path)
+    m = _DROP_CUBE_RE.match(query)
+    if m:
+        name = m.group(1)
+        return lambda eng: _run_drop_cube(eng, name)
+    if _REFRESH_CUBES_RE.match(query):
+        return _run_refresh_cubes
     for pattern, what, item in _NOT_PORTED:
         if pattern.match(query):
             raise NotYetPorted(f"not yet ported: {what}; see ROADMAP.md "
@@ -558,3 +636,164 @@ def _run_search_verb(eng: Engine, datasource: str, pattern: str,
         query=SearchQueryContains(pattern, case_sensitive=False),
         limit=limit)
     return eng.execute_ir(q).to_pandas()
+
+
+# ------------------------------------------------------------- cube DDL
+
+_CUBE_CLAUSE_RE = re.compile(
+    r"(dimensions|aggregates|granularity)\b\s*", re.I)
+
+
+def _scan_quote(s: str, i: int) -> int:
+    """Index just past the SQL string literal starting at s[i] == "'"
+    ('' is the escape). Unterminated -> len(s)."""
+    i += 1
+    n = len(s)
+    while i < n:
+        if s[i] == "'":
+            if i + 1 < n and s[i + 1] == "'":
+                i += 2
+                continue
+            return i + 1
+        i += 1
+    return n
+
+
+def _split_top_commas(s: str) -> list[str]:
+    """Comma split at paren depth 0, quote-aware (aggregate lists nest
+    parens, and filter literals may contain commas/parens)."""
+    out, depth, cur, i, n = [], 0, [], 0, len(s)
+    while i < n:
+        ch = s[i]
+        if ch == "'":
+            j = _scan_quote(s, i)
+            cur.append(s[i:j])
+            i = j
+            continue
+        if ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+        if ch == "," and depth == 0:
+            out.append("".join(cur).strip())
+            cur = []
+        else:
+            cur.append(ch)
+        i += 1
+    tail = "".join(cur).strip()
+    if tail:
+        out.append(tail)
+    return out
+
+
+def _parse_cube_clauses(clauses: str) -> dict:
+    """DIMENSIONS (...) / GRANULARITY g / AGGREGATES (...) in any
+    order -> spec fields. Parenthesized lists are matched by depth so
+    aggregate expressions may contain commas and parens."""
+    out = {"dimensions": (), "granularity": "all", "aggregations": ()}
+    i, n = 0, len(clauses)
+    while i < n:
+        m = _CUBE_CLAUSE_RE.match(clauses, i)
+        if m is None:
+            if clauses[i].isspace():
+                i += 1
+                continue
+            raise UserError(
+                f"cannot parse CREATE DRUID CUBE clause at "
+                f"{clauses[i:i + 40]!r}")
+        kw = m.group(1).lower()
+        i = m.end()
+        if kw == "granularity":
+            g = re.match(r"\s*(\w+)", clauses[i:])
+            if g is None:
+                raise UserError("GRANULARITY needs a grain name")
+            out["granularity"] = g.group(1)
+            i += g.end()
+            continue
+        j = clauses.find("(", i)
+        if j < 0 or clauses[i:j].strip():
+            # junk between the keyword and its list must not silently
+            # drop items (DIMENSIONS cat (region) would lose `cat`)
+            raise UserError(f"{kw.upper()} needs a parenthesized list")
+        depth, k = 0, j
+        while k < n:
+            c = clauses[k]
+            if c == "'":
+                # parens/commas inside a filter literal (e.g.
+                # FILTER (WHERE cat = 'a)')) are text, not structure
+                k = _scan_quote(clauses, k)
+                continue
+            if c == "(":
+                depth += 1
+            elif c == ")":
+                depth -= 1
+                if depth == 0:
+                    break
+            k += 1
+        if depth != 0:
+            raise UserError(f"unbalanced parens in {kw.upper()} list")
+        items = _split_top_commas(clauses[j + 1:k])
+        if kw == "dimensions":
+            out["dimensions"] = tuple(items)
+        else:
+            out["aggregations"] = tuple(items)
+        i = k + 1
+    return out
+
+
+def _cube_status_frame(rows) -> pd.DataFrame:
+    return pd.DataFrame(rows, columns=["cube", "status", "detail"])
+
+
+def _run_create_cube(eng: Engine, name, base, clauses) -> pd.DataFrame:
+    from tpu_olap_torch.cubes import CubeSpec
+    fields = _parse_cube_clauses(clauses)
+    spec = CubeSpec(name=name, datasource=base, source="ddl", **fields)
+    entry = eng.create_cube(spec)
+    return _cube_status_frame([{
+        "cube": name, "status": entry.status,
+        "detail": f"{entry.data.n_rows} rows @ {spec.granularity} "
+                  f"in {entry.build_ms:.0f} ms"}])
+
+
+def _run_create_cubes_from(eng: Engine, path: str) -> pd.DataFrame:
+    """CREATE DRUID CUBES FROM '<file.json>': materialize every spec in
+    the file (a list, or {"cubes": [...]} — the exact artifact
+    cubes.cube_specs_from_workload writes). Per-spec isolation:
+    one bad spec reports its error without aborting the rest."""
+    with open(path) as f:
+        payload = json.load(f)
+    specs = payload.get("cubes", payload) if isinstance(payload, dict) \
+        else payload
+    if not isinstance(specs, list):
+        raise UserError(f"{path!r}: expected a list of cube specs")
+    rows = []
+    for s in specs:
+        cname = (s or {}).get("name", "?") if isinstance(s, dict) else "?"
+        try:
+            entry = eng.create_cube(s)
+            rows.append({"cube": entry.spec.name,
+                         "status": entry.status,
+                         "detail": f"{entry.data.n_rows} rows in "
+                                   f"{entry.build_ms:.0f} ms"})
+        except Exception as e:  # noqa: BLE001 — per-spec isolation
+            rows.append({"cube": cname, "status": "error",
+                         "detail": str(e)[:300]})
+    return _cube_status_frame(rows)
+
+
+def _run_drop_cube(eng: Engine, name: str) -> pd.DataFrame:
+    found = eng.drop_cube(name)
+    return _cube_status_frame([{
+        "cube": name, "status": "dropped" if found else "absent",
+        "detail": ""}])
+
+
+def _run_refresh_cubes(eng: Engine) -> pd.DataFrame:
+    results = eng.cubes.refresh_now()
+    if not results:
+        return _cube_status_frame([])
+    return _cube_status_frame([
+        {"cube": n, "status": "ok" if r == "ok" else "error",
+         "detail": "" if r == "ok" else r}
+        for n, r in sorted(results.items())])

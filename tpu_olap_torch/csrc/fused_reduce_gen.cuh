@@ -42,6 +42,15 @@
 //  - The wrapper launches only as many blocks as the occupancy
 //    calculator allows for this kernel at its shared-memory size.
 //
+// The segment-extended variant (kSegGroups = K > 0, kGroups = W * K)
+// serves tier 1 of the result cache (executor.resultcache): like the JAX
+// package's QueryRunner._seg_partials_kernel, it reduces every segment
+// of the window [seg_lo, seg_lo + W) into groups of its own, the row's
+// key plus (seg - seg_lo) * K, so that one launch returns each computed
+// segment's own partials. The blocks walk only the window's tiles, and
+// seg_lo is a launch parameter: a window that slides at the same W
+// reuses the compiled kernel.
+//
 // No header is included: NVRTC compiles this with its builtins only;
 // kernels/rowgen.py splices csrc/row_common.cuh in at ROW_COMMON.
 
@@ -61,10 +70,24 @@ struct Params {
   int* mins;                      // [K, kMin] int32
   long long seg_rows;             // R
   long long tiles_per_seg;        // ceil(R / kTile)
-  long long n_tiles;              // S * tiles_per_seg
+  long long n_tiles;              // end of the tiles walked
+  long long tile_lo;              // first tile walked
+  long long seg_lo;               // the segment-extended key's window
   long long consts[kMaxConsts];   // rowgen.constants: the query's literals
   int vec;                        // 16-byte loads allowed
 };
+
+// the segment-extended key: a row keyed outside [0, K) is dropped, as
+// the plain kernel drops it; else it moves to its segment's groups
+__device__ __forceinline__ bool seg_key(rowgen_plan::RowOut& o,
+                                        long long seg, long long lo) {
+  if constexpr (rowgen_plan::kSegGroups > 0) {
+    if (o.key < 0 || o.key >= rowgen_plan::kSegGroups) return false;
+    o.key += (seg - lo) * rowgen_plan::kSegGroups;
+  }
+  (void)seg; (void)lo;
+  return true;
+}
 
 }  // namespace rowgen
 
@@ -88,7 +111,8 @@ fused_reduce_gen(const __grid_constant__ rowgen::Params p) {
   Acc acc;
   acc_init(acc);
 
-  for (long long t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
+  for (long long t = p.tile_lo + blockIdx.x; t < p.n_tiles;
+       t += gridDim.x) {
     const long long seg = t / p.tiles_per_seg;
     if (!p.seg_mask[seg]) continue;  // a pruned tile reads nothing more
     const long long seg_end = (seg + 1) * p.seg_rows;
@@ -107,6 +131,7 @@ fused_reduce_gen(const __grid_constant__ rowgen::Params p) {
       for (int r = 0; r < kRowsPerThread; ++r) {
         if (!lane_b8(vb, r)) continue;
         if (!row_vec(p.slot, p.data, p.consts, i0 + r, c, r, o)) continue;
+        if (!seg_key(o, seg, p.seg_lo)) continue;
         if constexpr (kOneGroup) acc_take(acc, o);
         else if constexpr (kShared) take_shared(o, t64, t32, tmin);
         else take_global(o, p.sums, p.mins);
@@ -117,6 +142,7 @@ fused_reduce_gen(const __grid_constant__ rowgen::Params p) {
         if (i >= seg_end) break;
         if (!p.valid[i]) continue;
         if (!row_scalar(p.slot, p.data, p.consts, i, o)) continue;
+        if (!seg_key(o, seg, p.seg_lo)) continue;
         if constexpr (kOneGroup) acc_take(acc, o);
         else if constexpr (kShared) take_shared(o, t64, t32, tmin);
         else take_global(o, p.sums, p.mins);

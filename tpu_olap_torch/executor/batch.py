@@ -19,6 +19,9 @@ shared column store, SURVEY.md §3.1):
 - everything else runs through the single-query path.
 Every leg's answer equals the same statement run alone: a leg reads the
 union window, and its own segment mask adds exact zeros for the rest.
+Legs share the full-result cache (executor.resultcache, tier 2) with the
+single-query path: a cached leg is served and fanned out to its
+duplicates without lowering or a scan, and a fused leg fills the cache.
 
 Entry points: run_batch(runner, queries, table) (boxed: per-leg
 failures come back as exceptions in the leg's place), the Coalescer
@@ -33,8 +36,7 @@ launch cannot be timed per leg), `fused_batch` (legs in the multi-leg
 kernel), `host_copies` (the group's one copy, shared like
 scan_ms_shared) and route "batch".
 
-Not ported here, each with the ROADMAP item that brings it: the
-full-result cache a batch leg consults and fills (item 11); admission,
+Not ported here, each with the ROADMAP item that brings it: admission,
 the guarded dispatch with its deadline and wedge reprobe, fault
 injection and the pipelined mode (item 12); mesh legs and the broker
 merge (item 13); spans, history records, SLO observations and events
@@ -85,6 +87,10 @@ def run_batch(runner, queries, table) -> list:
     singles, fused = [], []   # [(query, duplicate indexes, plan)]
     for idxs in uniq.values():
         q = queries[idxs[0]]
+        cached = runner._serve_full_cache(q, table)
+        if cached is not None:
+            _fan_out(boxed, cached, idxs, queries)
+            continue
         try:
             plan = runner._lower_cached(q, table)
             reason = fusable(plan) if isinstance(q, AGG_QUERY_TYPES) \
@@ -231,9 +237,12 @@ def _run_fused(runner, table, group):
 
     envs, seg_masks, consts = [], [], []
     valid = None
+    # the union of the legs' working sets stays pinned in the ledger
+    # until the launch: one leg's env build must not evict another's
+    pinned = runner.pins(plans)
     for plan, m in zip(plans, metrics_list):
         t0 = time.perf_counter()
-        env, valid, seg_mask, c = runner._prepare(plan, m)
+        env, valid, seg_mask, c = runner._prepare(plan, m, pinned)
         m["prepare_ms"] = (time.perf_counter() - t0) * 1000
         m["fused"] = plan.fused_reason is None
         if plan.fused_reason is not None:
@@ -314,6 +323,8 @@ def _run_fused(runner, table, group):
         m["assemble_ms"] = (time.perf_counter() - t0) * 1000
         m["total_ms"] = (time.perf_counter() - t_start) * 1000
         res.metrics = m
+        fp = runner._observe(m, q, table)
+        runner._store_full_cache(q, table, res, fp)
         results.append(res)
     return results
 

@@ -108,3 +108,58 @@ class EngineConfig:
     batch_window_ms: float = 0.0
     # most logical queries per fused dispatch; larger batches split
     batch_max_queries: int = 16
+
+    # device residency budget (bytes) for the resident column stacks of
+    # every table (executor.dataset.HbmLedger): past it the
+    # least-recently-used unpinned stacks evict. None = unbounded.
+    hbm_budget_bytes: int | None = None
+
+    # semantic result cache (executor.resultcache). Tier 2: full results
+    # keyed by (normalized query JSON, table generation), a byte-budget
+    # LRU. Tier 1: per-segment partial aggregates keyed by (generation,
+    # segment id, query template minus intervals): a repeated aggregate
+    # over a moving window recomputes only the uncached segments, in one
+    # launch of the segment-extended fused reduce, and merges the rest on
+    # the host. Both invalidate generationally on registration and DROP
+    # and clear with CLEAR DRUID CACHE. Off by default, as in the JAX
+    # package: serving deployments opt in.
+    result_cache_enabled: bool = False
+    result_cache_max_bytes: int = 256 << 20
+    segment_cache_enabled: bool = False
+    segment_cache_max_bytes: int = 512 << 20
+    # segments with fewer valid rows than this floor are recomputed
+    # rather than cached
+    segment_cache_min_rows: int = 256
+    # most per-segment state elements (segments x groups x agg radix)
+    # the one-pass per-segment dispatch may allocate; plans past it
+    # bypass tier 1
+    segment_cache_state_budget: int = 1 << 22
+
+    # materialized rollup cubes (tpu_olap_torch.cubes): the planner's
+    # aggregate-rewrite pass serves a covered aggregate by folding a
+    # registered cube's stored partials instead of scanning the base
+    # table. Cubes exist only once created (DDL, Engine.create_cube,
+    # advisor specs).
+    cube_rewrite_enabled: bool = True
+    # background maintainer: rebuild cubes whose base table's generation
+    # moved (a stale cube is never served either way). False = refresh
+    # only through REFRESH DRUID CUBES / CubeRegistry.refresh_now.
+    cube_auto_refresh: bool = True
+    cube_refresh_interval_s: float = 2.0
+    # serve-time fold budget: most [groups x per-agg state radix]
+    # elements the host fold may allocate
+    cube_serve_state_budget: int = 1 << 22
+    # serve-cost bailout: serve from a cube only when its interval-kept
+    # row count is at least this factor below the base rows the query
+    # would scan after pruning; <= 1 disables the check. The default is
+    # the JAX package's; PERF.md has the crossover measured on the card.
+    cube_serve_min_reduction: float = 16.0
+
+    # workload profiler (obs.workload): every completed statement folds
+    # into bounded per-template rolling stats, the demand signal of the
+    # cube advisor. workload_max_templates bounds distinct templates
+    # (least-recently-seen evicts); workload_latency_window bounds the
+    # per-template latency ring.
+    workload_profile_enabled: bool = True
+    workload_max_templates: int = 512
+    workload_latency_window: int = 512

@@ -5,12 +5,18 @@ columns are uploaded to the device once per table (lazily, per column) and
 reused across queries. Interval pruning is applied as a per-segment mask
 (columns stay resident; masked segments cost compute but no transfer).
 
-One device, no mesh, no budgeted eviction and no incremental rebase —
-those belong to the JAX package's multi-chip and real-time ingest paths,
-which are not ported yet.
+Every table's stacks are accounted in one `HbmLedger` that the runner
+owns: past `EngineConfig.hbm_budget_bytes` the least-recently-used
+unpinned stacks evict (an evicted stack rebuilds on its next use). One
+device, no mesh and no incremental rebase: those belong to the JAX
+package's multi-chip and real-time ingest paths, which are not ported
+yet.
 """
 
 from __future__ import annotations
+
+import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -57,12 +63,99 @@ def has_nulls(table: TableSegments, name: str) -> bool:
     return any(name in s.null_masks for s in table.segments)
 
 
-class DeviceDataset:
-    """Lazy per-column stacks for one table on one device."""
+class HbmLedger:
+    """LRU accounting of the device-resident stacks of every table the
+    runner serves. When an add would pass the budget, the
+    least-recently-used unpinned stacks evict first; the stacks the
+    in-flight query needs are pinned while its env builds. A single
+    over-budget stack still uploads (the query must run): the budget
+    bounds the cache, not one query's working set.
 
-    def __init__(self, table: TableSegments, device: torch.device):
+    Evicting drops the dataset's reference only: the memory returns to
+    torch's caching allocator once no env holds the tensor any more, so
+    the witness of the budget is torch.cuda.memory_allocated(), not
+    memory_reserved(). `pin_inflight` counts a dispatch's not-yet-copied
+    output bytes toward the budget without making them evictable.
+
+    Per-chip attribution (`set_num_chips`, the per-(chip, owner)
+    `breakdown`, `register_external` for tier-1 cache pins) comes with
+    the multi-GPU port (ROADMAP queue A item 13)."""
+
+    def __init__(self, budget_bytes: int | None):
+        self.budget = budget_bytes
+        self._entries: OrderedDict[tuple, tuple[int, object]] = \
+            OrderedDict()  # key -> (nbytes, evict_fn)
+        self._inflight: dict[tuple, int] = {}
+        self._mu = threading.RLock()
+        self.bytes_in_use = 0
+        self.evictions = 0
+        self.high_watermark = 0
+
+    @property
+    def inflight_bytes(self) -> int:
+        with self._mu:
+            return sum(self._inflight.values())
+
+    def _grow(self, nbytes: int):
+        self.bytes_in_use += nbytes
+        if self.bytes_in_use > self.high_watermark:
+            self.high_watermark = self.bytes_in_use
+
+    def touch(self, key):
+        with self._mu:
+            if key in self._entries:
+                self._entries.move_to_end(key)
+
+    def add(self, key, nbytes: int, evict_fn, pinned=frozenset()):
+        with self._mu:
+            if self.budget is not None:
+                for k in list(self._entries):
+                    if self.bytes_in_use + nbytes <= self.budget:
+                        break
+                    if k in pinned:
+                        continue
+                    n, fn = self._entries.pop(k)
+                    self.bytes_in_use -= n
+                    self.evictions += 1
+                    fn()
+            self._entries[key] = (nbytes, evict_fn)
+            self._grow(nbytes)
+
+    def pin_inflight(self, key, nbytes: int):
+        """Account a dispatch's not-yet-copied output buffers: counted in
+        bytes_in_use (so later adds evict stacks to stay within budget)
+        but never evictable."""
+        with self._mu:
+            self._inflight[key] = int(nbytes)
+            self._grow(int(nbytes))
+
+    def unpin_inflight(self, key):
+        with self._mu:
+            n = self._inflight.pop(key, None)
+            if n is not None:
+                self.bytes_in_use -= n
+
+    def remove(self, key):
+        with self._mu:
+            e = self._entries.pop(key, None)
+            if e is not None:
+                self.bytes_in_use -= e[0]
+
+    def remove_table(self, table_name: str):
+        with self._mu:
+            for k in [k for k in self._entries if k[0] == table_name]:
+                self.remove(k)
+
+
+class DeviceDataset:
+    """Lazy per-column stacks for one table on one device, accounted in
+    the runner's HbmLedger (None: unaccounted)."""
+
+    def __init__(self, table: TableSegments, device: torch.device,
+                 ledger: HbmLedger | None = None):
         self.table = table
         self.device = torch.device(device)
+        self.ledger = ledger
         self._cols: dict[str, torch.Tensor] = {}
         self._nulls: dict[str, torch.Tensor | None] = {}
         self._derived: dict[str, torch.Tensor] = {}
@@ -78,41 +171,82 @@ class DeviceDataset:
             return np.zeros((0, self.table.block_rows), dtype or np.int32)
         return np.stack(rows)
 
-    def col(self, name: str) -> torch.Tensor:
-        if name not in self._cols:
+    def _account(self, kind: str, name: str, t: torch.Tensor, store,
+                 pinned):
+        """Enter a new stack in the ledger; evicting it pops it from
+        `store` (a dict, or None for the validity mask)."""
+        if self.ledger is None:
+            return
+        nbytes = t.numel() * t.element_size()
+        if store is None:
+            def drop():
+                self._valid = None
+        else:
+            def drop():
+                store.pop(name, None)
+        self.ledger.add((self.table.name, kind, name), nbytes, drop, pinned)
+
+    def _touch(self, kind: str, name: str):
+        if self.ledger is not None:
+            self.ledger.touch((self.table.name, kind, name))
+
+    def col(self, name: str, pinned=frozenset()) -> torch.Tensor:
+        t = self._cols.get(name)
+        if t is None:
             dt = narrow_dtype(self.table, name)
             get = (lambda s: s.columns[name]) if dt is None else \
                 (lambda s: s.columns[name].astype(dt, copy=False))
-            self._cols[name] = self._put(self._stack(get, dt))
-        return self._cols[name]
+            t = self._cols[name] = self._put(self._stack(get, dt))
+            self._account("col", name, t, self._cols, pinned)
+        else:
+            self._touch("col", name)
+        return t
 
-    def null_mask(self, name: str):
+    def null_mask(self, name: str, pinned=frozenset()):
         """None if the column has no nulls anywhere."""
         if name not in self._nulls:
+            t = None
             if has_nulls(self.table, name):
                 zero = np.zeros(self.table.block_rows, bool)
-                self._nulls[name] = self._put(self._stack(
+                t = self._put(self._stack(
                     lambda s: s.null_masks.get(name, zero)))
-            else:
-                self._nulls[name] = None
-        return self._nulls[name]
+            self._nulls[name] = t
+            if t is not None:
+                self._account("null", name, t, self._nulls, pinned)
+            return t
+        t = self._nulls[name]
+        if t is not None:
+            self._touch("null", name)
+        return t
 
-    def derived(self, token: str, build) -> torch.Tensor:
+    def derived(self, token: str, build, pinned=frozenset()) -> \
+            torch.Tensor:
         """Device-resident derived int32 stream [S, R] (precomputed dim
         ids, bucket ids, filter translations), computed ONCE per content
         token and reused across queries — a resident stream costs one
-        read like any column instead of a gather per dispatch."""
-        if token not in self._derived:
-            self._derived[token] = build()
-        return self._derived[token]
+        read like any column instead of a gather per dispatch. Evictable;
+        an evicted stream rebuilds. `pinned` must hold the in-flight
+        query's working set, so that this add cannot evict what the same
+        query is about to read."""
+        t = self._derived.get(token)
+        if t is None:
+            t = self._derived[token] = build()
+            self._account("derived", token, t, self._derived, pinned)
+        else:
+            self._touch("derived", token)
+        return t
 
-    def valid(self) -> torch.Tensor:
+    def valid(self, pinned=frozenset()) -> torch.Tensor:
         """[S, R] row-validity (padding rows are False)."""
-        if self._valid is None:
+        t = self._valid
+        if t is None:
             r = np.arange(self.table.block_rows)
-            self._valid = self._put(self._stack(
+            t = self._valid = self._put(self._stack(
                 lambda s: r < s.meta.n_valid, bool))
-        return self._valid
+            self._account("valid", "", t, None, pinned)
+        else:
+            self._touch("valid", "")
+        return t
 
     def segment_mask(self, kept_ids) -> torch.Tensor:
         """[S] bool on the device from the pruned segment ids."""
@@ -120,12 +254,25 @@ class DeviceDataset:
         m[list(kept_ids)] = True
         return self._put(m)
 
-    def env(self, columns, null_cols) -> dict:
-        """The kernel env for the requested columns."""
+    def pins(self, columns, null_cols, tokens=()) -> frozenset:
+        """Ledger keys of a working set: its columns, null masks, derived
+        streams and the validity mask."""
+        n = self.table.name
+        return frozenset([(n, "col", c) for c in columns]
+                         + [(n, "null", c) for c in null_cols]
+                         + [(n, "derived", t) for t in tokens]
+                         + [(n, "valid", "")])
+
+    def env(self, columns, null_cols, pinned=None) -> dict:
+        """The kernel env for the requested columns. The working set is
+        pinned while it builds, so that budget eviction cannot drop a
+        stack this same query is about to use."""
+        if pinned is None:
+            pinned = self.pins(columns, null_cols)
         return {
-            "cols": {c: self.col(c) for c in columns},
+            "cols": {c: self.col(c, pinned) for c in columns},
             "nulls": {c: m for c in null_cols
-                      if (m := self.null_mask(c)) is not None},
+                      if (m := self.null_mask(c, pinned)) is not None},
         }
 
     def resident_bytes(self) -> int:
@@ -139,3 +286,12 @@ class DeviceDataset:
         if self._valid is not None:
             total += self._valid.numel()
         return total
+
+    def evict(self):
+        """Drop every stack and its ledger entries."""
+        self._cols.clear()
+        self._nulls.clear()
+        self._derived.clear()
+        self._valid = None
+        if self.ledger is not None:
+            self.ledger.remove_table(self.table.name)

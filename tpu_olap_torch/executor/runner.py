@@ -24,8 +24,17 @@ TimeBoundary and SegmentMetadata read the table's manifest.
 Batches of aggregate queries share one pass (executor.batch):
 `execute_batch`, and the coalescer behind EngineConfig.batch_window_ms
 that gathers concurrent `execute` callers into one batch. Device work
-runs under `dispatch_lock`; coalesced callers wait outside it. The
-caches, the stage graph and the mesh are not ported yet.
+runs under `dispatch_lock`; coalesced callers wait outside it.
+
+The semantic result cache (executor.resultcache) sits in front: tier 2
+serves a repeated aggregate's whole result before the lock, with no
+launch and no copy; tier 1 serves the segments a moving window has seen
+and computes the rest in one launch of the segment-extended fused reduce
+(`_run_agg_segcached`). Every table's resident stacks are accounted in
+one HbmLedger under `hbm_budget_bytes`. `compute_partials` is the cube
+materializer's entry point, and `workload` profiles every completed
+statement for the cube advisor. The stage graph, admission and the
+breaker (item 12) and the mesh (item 13) are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,10 +48,11 @@ import numpy as np
 import torch
 
 from tpu_olap_torch.executor.config import EngineConfig
-from tpu_olap_torch.executor.dataset import DeviceDataset
+from tpu_olap_torch.executor.dataset import DeviceDataset, HbmLedger
 from tpu_olap_torch.executor.lowering import PhysicalPlan, lower
 from tpu_olap_torch.executor.packing import (build_packer, densify,
                                              make_layout, unpack)
+from tpu_olap_torch.executor.resultcache import ResultCache
 from tpu_olap_torch.executor.results import (agg_specs_by_name, eval_having,
                                              eval_post_aggs, finalize_aggs,
                                              iso, render_value,
@@ -51,13 +61,17 @@ from tpu_olap_torch.ir.aggregations import CountAggregation
 from tpu_olap_torch.ir.dimensions import DefaultDimensionSpec
 from tpu_olap_torch.ir.interval import ETERNITY
 from tpu_olap_torch.kernels.filtereval import _take
-from tpu_olap_torch.kernels.groupby import UnsupportedAggregation
+from tpu_olap_torch.kernels import fused_reduce
+from tpu_olap_torch.kernels.groupby import (UnsupportedAggregation,
+                                            group_reduce, merge_partials)
 from tpu_olap_torch.kernels.sparse_groupby import SENTINEL
 from tpu_olap_torch.ir.query import (GroupByQuerySpec, ScanQuerySpec,
                                      SearchQuerySpec,
                                      SegmentMetadataQuerySpec,
                                      SelectQuerySpec, TimeBoundaryQuerySpec,
                                      TimeseriesQuerySpec, TopNQuerySpec)
+from tpu_olap_torch.obs.workload import (WorkloadProfiler, fingerprint_ir,
+                                         in_introspection)
 from tpu_olap_torch.segments.segment import TIME_COLUMN
 
 
@@ -122,6 +136,14 @@ class QueryRunner:
         self._tls = threading.local()   # per-thread last_metrics
         self._coalescer = None
         self._batch_seq = 0
+        # one ledger over every table's resident stacks; per-chip
+        # attribution comes with the multi-GPU port (item 13)
+        self._ledger = HbmLedger(self.config.hbm_budget_bytes)
+        self.result_cache = ResultCache(self.config)
+        self.workload = WorkloadProfiler(
+            max_templates=self.config.workload_max_templates,
+            latency_window=self.config.workload_latency_window,
+            enabled=self.config.workload_profile_enabled)
         if (self.config.batch_window_ms or 0) > 0:
             self.set_batch_window(self.config.batch_window_ms)
 
@@ -165,6 +187,12 @@ class QueryRunner:
         return self._batch_seq
 
     def execute(self, query, table) -> QueryResult:
+        # the full-result cache first: a hit takes no lock, launches
+        # nothing and copies nothing
+        res = self._serve_full_cache(query, table)
+        if res is not None:
+            self.last_metrics = res.metrics
+            return res
         if self._coalescer is not None and not in_nested_execution():
             from tpu_olap_torch.executor.batch import AGG_QUERY_TYPES
             if isinstance(query, AGG_QUERY_TYPES):
@@ -192,16 +220,96 @@ class QueryRunner:
         else:
             raise TypeError(f"unknown query type {type(query).__name__}")
         res.metrics["total_ms"] = (time.perf_counter() - t0) * 1000
+        fp = self._observe(res.metrics, query, table)
+        self._store_full_cache(query, table, res, fp)
         return res
 
+    # --------------------------------------------- semantic result cache
+
+    _CACHEABLE_QUERY_TYPES = ("timeseries", "groupBy", "topN")
+
+    def _cacheable(self, query, table) -> bool:
+        return (self.result_cache.full_enabled and not in_introspection()
+                and getattr(query, "query_type", None)
+                in self._CACHEABLE_QUERY_TYPES
+                and getattr(table, "generation", None) is not None)
+
+    def _serve_full_cache(self, query, table) -> QueryResult | None:
+        """Tier-2 lookup: a hit returns a fresh QueryResult sharing the
+        cached rows (cache_hit, cache_tier "full", path "cache", route
+        "cache", rows_scanned 0, no launch and no copy). None = miss or
+        bypass; the caller executes."""
+        if not self._cacheable(query, table):
+            return None
+        t0 = time.perf_counter()
+        hit = self.result_cache.get_full(query, table)
+        if hit is None:
+            return None
+        rows, druid, meta = hit
+        m = {"route": "cache", "host_copies": 0, "cache_hit": True,
+             "cache_tier": "full", "rows_scanned": 0,
+             "segments_scanned": 0,
+             "segments_total": meta.get("segments_total", 0),
+             "rows_returned": len(rows),
+             "total_ms": (time.perf_counter() - t0) * 1000}
+        self._observe(m, query, table, meta.get("_wl_fp"))
+        return QueryResult(query, rows, druid, m)
+
+    def _store_full_cache(self, query, table, res: QueryResult, fp=None):
+        """Fill tier 2 from a served result (the single path, batch
+        singles and fused batch legs all come here). `fp` is the
+        statement's workload fingerprint, kept on the entry so that a
+        hit is attributed without re-normalizing the query."""
+        if not self._cacheable(query, table) or res.metrics.get("failed"):
+            return
+        self.result_cache.put_full(query, table, res.rows, res.druid, {
+            "segments_total": res.metrics.get("segments_total", 0),
+            "_wl_fp": fp})
+
+    # ----------------------------------------------------------- workload
+
+    def fingerprint(self, query, table_name: str):
+        """Workload template of a device-path query (obs.workload), or
+        None (profiling off, or an exotic spec): profiling never fails
+        a query."""
+        if not self.workload.enabled:
+            return None
+        try:
+            return fingerprint_ir(query, table_name)
+        except Exception:  # noqa: BLE001 — profiling must never raise
+            return None
+
+    def _observe(self, m: dict, query, table, fp=None):
+        """Stamp a completed statement's metrics (query_type, datasource,
+        path) and fold them into the workload profiler, once per
+        statement. Returns the fingerprint."""
+        m.setdefault("query_type", getattr(query, "query_type", "?"))
+        m.setdefault("datasource", table.name)
+        m.setdefault("cache_hit", False)
+        m["path"] = _metric_path(m)
+        if in_introspection():
+            return fp
+        if fp is None:
+            fp = self.fingerprint(query, table.name)
+        if fp is not None:
+            m.setdefault("template_id", fp.template_id)
+        self.workload.observe(m, fp)
+        return fp
+
     def clear_cache(self, table_name: str | None = None):
-        """Drop one table's resident columns, memoized plans and cap
-        hints, or every table's (None): the next query re-uploads."""
+        """Drop one table's resident columns, memoized plans, cap hints
+        and both result-cache tiers, or every table's (None): the next
+        query re-uploads."""
+        self.result_cache.clear(table_name)
         if table_name is None:
+            for ds in list(self._datasets.values()):
+                ds.evict()
             for store in (self._datasets, self._plan_cache, self._cap_hints):
                 store.clear()
             return
-        self._datasets.pop(table_name, None)
+        ds = self._datasets.pop(table_name, None)
+        if ds is not None:
+            ds.evict()
         for store in (self._plan_cache, self._cap_hints):
             for k in [k for k in store if k[0] == table_name]:
                 del store[k]
@@ -213,9 +321,38 @@ class QueryRunner:
     def _dataset(self, table) -> DeviceDataset:
         ds = self._datasets.get(table.name)
         if ds is None or ds.table is not table:
-            ds = DeviceDataset(table, self.device)
+            if ds is not None:
+                ds.evict()  # a superseded snapshot leaves the ledger
+            ds = DeviceDataset(table, self.device, self._ledger)
             self._datasets[table.name] = ds
         return ds
+
+    @staticmethod
+    def working_set(plan: PhysicalPlan) -> tuple:
+        """(columns, null columns, derived tokens) a plan's dispatch
+        reads, the derived streams' source columns included."""
+        cols = list(plan.columns)
+        tokens = [dp.cache_token for dp in plan.dim_plans
+                  if dp.cache_token is not None]
+        cols += [dp.source_col if dp.source_col is not None
+                 else TIME_COLUMN for dp in plan.dim_plans
+                 if dp.cache_token is not None]
+        bp = plan.bucket_plan
+        if bp is not None and bp.cache_token:
+            tokens.append(bp.cache_token)
+            cols.append(TIME_COLUMN)
+        tokens += [t for t, _, _ in plan.filter_streams]
+        cols += [src for _, src, _ in plan.filter_streams]
+        return tuple(dict.fromkeys(cols)), tuple(plan.null_cols), \
+            tuple(tokens)
+
+    def pins(self, plans) -> frozenset:
+        """Ledger keys of the union of the plans' working sets (one
+        table): what a dispatch pins while its env builds."""
+        out = frozenset()
+        for plan in plans:
+            out |= self._dataset(plan.table).pins(*self.working_set(plan))
+        return out
 
     def _lower_cached(self, query, table) -> PhysicalPlan:
         """Memoized lower(): re-lowering an unchanged query costs
@@ -247,29 +384,36 @@ class QueryRunner:
                 for k, v in plan.pool.consts.items()}
         return consts
 
-    def _prepare(self, plan: PhysicalPlan, metrics: dict):
+    def _prepare(self, plan: PhysicalPlan, metrics: dict, pinned=None):
         """Dataset env + derived streams + validity/segment masks + scan
-        metrics."""
+        metrics. The working set (`pinned`, default the plan's own; a
+        fused batch passes its legs' union) is pinned in the ledger
+        while it builds, so that nothing it reads is evicted before the
+        launch that reads it."""
         table = plan.table
         ds = self._dataset(table)
-        env = ds.env(plan.columns, plan.null_cols)
+        if pinned is None:
+            pinned = self.pins([plan])
+        env = ds.env(plan.columns, plan.null_cols, pinned)
         consts = self._device_consts(plan)
         for dp in plan.dim_plans:
             if dp.cache_token is not None:
                 env["cols"][dp.derived_name] = ds.derived(
                     dp.cache_token,
-                    lambda dp=dp: self._build_derived(ds, consts, dp))
+                    lambda dp=dp: self._build_derived(ds, consts, dp,
+                                                      pinned), pinned)
         bp = plan.bucket_plan
         if bp is not None and bp.cache_token:
             env["cols"][bp.derived_name] = ds.derived(
                 bp.cache_token,
-                lambda: bp.build_stream(ds.col(TIME_COLUMN), consts)
-                .to(torch.int32))
+                lambda: bp.build_stream(ds.col(TIME_COLUMN, pinned), consts)
+                .to(torch.int32), pinned)
         for token, src, cname in plan.filter_streams:
             env["cols"]["\0d:" + token] = ds.derived(
                 token, lambda src=src, cname=cname:
-                    _take(consts[cname], ds.col(src)).to(torch.int32))
-        valid = ds.valid()
+                    _take(consts[cname], ds.col(src, pinned))
+                    .to(torch.int32), pinned)
+        valid = ds.valid(pinned)
         kept = plan.pruned_ids if not plan.empty else []
         # once per plan: a host-to-device copy per query would sync
         seg_mask = getattr(plan, "_device_seg_mask", None)
@@ -279,15 +423,18 @@ class QueryRunner:
         metrics["segments_scanned"] = len(kept)
         metrics["rows_scanned"] = int(sum(
             table.segments[i].meta.n_valid for i in kept))
+        if self._ledger.budget is not None:
+            metrics["hbm_bytes"] = self._ledger.bytes_in_use
+            metrics["hbm_evictions"] = self._ledger.evictions
         return env, valid, seg_mask, consts
 
     @staticmethod
-    def _build_derived(ds, consts, dp) -> torch.Tensor:
+    def _build_derived(ds, consts, dp, pinned=frozenset()) -> torch.Tensor:
         """One precomputed dim id stream [S, R] int32 from its resident
         source column (dictionary codes for remap, __time for
         timeformat)."""
         src = dp.source_col if dp.source_col is not None else TIME_COLUMN
-        env = {"cols": {src: ds.col(src)}, "nulls": {}}
+        env = {"cols": {src: ds.col(src, pinned)}, "nulls": {}}
         return dp.ids(env, consts).to(torch.int32)
 
     def _segment_window(self, plan: PhysicalPlan, n_segments: int):
@@ -427,6 +574,17 @@ class QueryRunner:
             metrics["assemble_ms"] = (time.perf_counter() - t0) * 1000
             return res
 
+        if self.result_cache.seg_enabled:
+            arrays = self._run_agg_segcached(query, plan, metrics, specs,
+                                             keep_raw, table)
+            if arrays is not None:
+                t0 = time.perf_counter()
+                eval_post_aggs(arrays, query.post_aggregations)
+                res = self._assemble_agg(query, plan, arrays)
+                res.metrics = metrics
+                metrics["assemble_ms"] = (time.perf_counter() - t0) * 1000
+                return res
+
         packed = None if keep_raw else self._run_packed(plan, metrics)
         if packed is not None:
             metrics["route"] = "packed"
@@ -449,6 +607,157 @@ class QueryRunner:
         res.metrics = metrics
         metrics["assemble_ms"] = (time.perf_counter() - t0) * 1000
         return res
+
+    def _run_agg_segcached(self, query, plan, metrics, specs, keep_raw,
+                           table):
+        """Tier-1 per-segment partial-aggregate path: serve every cached,
+        fully interval-covered segment from the cache, compute the rest
+        in ONE launch that keys the group space by (segment, group) so
+        that each computed segment's partials come back apart
+        (cacheable), then fold everything on the host with the
+        aggregators' merge and finalize. Returns finalized arrays, or
+        None when the plan bypasses the tier (the caller takes the
+        packed or unpacked route); `segment_cache` in the metrics says
+        why."""
+        import functools
+
+        rc = self.result_cache
+        if in_introspection():
+            return None
+        reason = rc.tier1_bypass_reason(plan)
+        if reason is not None:
+            metrics["segment_cache"] = f"bypass: {reason}"
+            rc.count_bypass()
+            return None
+        metrics["route"] = "segment_cache"
+        intervals = query.intervals or (ETERNITY,)
+        tkey = rc.template_key(query, table)
+        floor = max(0, int(self.config.segment_cache_min_rows))
+        covered, always_compute = [], []
+        for sid in plan.pruned_ids:
+            sm = table.segments[sid].meta
+            # only segments ENTIRELY inside one query interval have
+            # interval-independent partials; straddlers and segments
+            # under the floor are computed every time and never stored
+            if sm.n_valid >= floor and table.segment_sealed(sid) and any(
+                    iv.start <= sm.time_min and iv.end > sm.time_max
+                    for iv in intervals):
+                covered.append(sid)
+            else:
+                always_compute.append(sid)
+        hits = rc.get_segments(tkey, table, plan, covered)
+        to_compute = sorted([s for s in covered if s not in hits]
+                            + always_compute)
+        if to_compute:
+            fresh = self._run_seg_partials(plan, metrics, to_compute)
+            storable = set(covered)
+            for sid in to_compute:
+                if sid in storable:
+                    rc.put_segment(tkey, table, plan, sid, fresh[sid])
+        else:
+            fresh = {}
+            metrics["segments_total"] = len(table.segments)
+            metrics["segments_scanned"] = 0
+            metrics["rows_scanned"] = 0
+        metrics["cache_hit"] = bool(hits)
+        if hits:
+            metrics["cache_tier"] = "segment"
+        metrics["segments_cached"] = len(hits)
+        metrics["segments_computed"] = len(to_compute)
+        parts = [hits[s] if s in hits else fresh[s]
+                 for s in sorted(set(covered) | set(always_compute))]
+        merged = functools.reduce(
+            lambda a, b: merge_partials(a, b, plan.agg_plans), parts)
+        return finalize_aggs(merged, plan.agg_plans, specs, keep_raw)
+
+    def _run_seg_partials(self, plan: PhysicalPlan, metrics: dict,
+                          compute_ids: list) -> dict:
+        """One pass computing PER-SEGMENT partials for `compute_ids`:
+        {segment id: partials dict of CPU tensors}. The group key is
+        extended to (window segment, group) over the window [lo, lo + W)
+        of the segments to compute (W a power of two, so that a plan
+        compiles at most log2(S) variants and a sliding window of the
+        same W compiles nothing), and the segment mask admits only
+        `compute_ids`. Fused plans launch the segment-extended fused
+        reduce once (kernels.fused_reduce.fused_reduce_seg); others (HLL,
+        theta) run the generic reduce with the same extended key. Either
+        way one copy brings every segment's partials back. A failure
+        raises: nothing serves the plain path in its place."""
+        env, valid, _, consts = self._prepare(plan, metrics)
+        table = plan.table
+        seg_mask = self._dataset(table).segment_mask(compute_ids)
+        # only the computed segments are read
+        metrics["segments_scanned"] = len(compute_ids)
+        metrics["rows_scanned"] = int(sum(
+            table.segments[i].meta.n_valid for i in compute_ids))
+        S = valid.shape[0]
+        K = plan.total_groups
+        lo, hi = min(compute_ids), max(compute_ids) + 1
+        W = min(_next_pow2(hi - lo), S)
+        lo = min(lo, S - W)
+        metrics["segments_window"] = W
+        t0 = time.perf_counter()
+        if plan.fused_reason is None:
+            prog = fused_reduce.program(plan, table)
+            sums, mins = fused_reduce.fused_reduce_seg(
+                prog, fused_reduce.program_inputs(prog, env), valid,
+                seg_mask, K, lo, W)
+            out = fused_reduce.partials(plan, sums, mins)
+        else:
+            sl = slice(lo, lo + W)
+            flat = {kind: {c: a[sl].reshape(-1)
+                           for c, a in env[kind].items()}
+                    for kind in ("cols", "nulls")}
+            base = (valid[sl] & seg_mask[sl, None]).reshape(-1)
+            key, mask, fenv = plan.front_half(flat, base, consts)
+            seg_local = torch.arange(W, dtype=torch.int32,
+                                     device=key.device) \
+                .repeat_interleave(valid.shape[1])
+            # int32 is safe: tier1_bypass_reason refuses key spaces of
+            # 2^31 and more
+            key2 = seg_local * K + key.to(torch.int32)
+            out = group_reduce(key2, mask, fenv, plan.agg_plans, W * K,
+                               consts)
+        host = _fetch(out, metrics)
+        metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
+        shaped = {n: torch.from_numpy(a).reshape((W, K) + a.shape[1:])
+                  for n, a in host.items()}
+        return {sid: {n: a[sid - lo] for n, a in shaped.items()}
+                for sid in compute_ids}
+
+    def compute_partials(self, query, table):
+        """Run an aggregation query and return its RAW mergeable
+        partials instead of finalized rows: the cube materializer's
+        entry point (tpu_olap_torch.cubes). Returns (plan, present flat
+        group ids [G] int64, {name: [G, ...] compact partial arrays},
+        metrics). Rides the cached lowering and the dense partials route
+        (the fused reduce on the card, one copy) or the sparse route,
+        under dispatch_lock, so that a background cube build queues
+        behind foreground traffic. Admission and the breaker come with
+        ROADMAP queue A item 12."""
+        with self.dispatch_lock:
+            metrics = self.last_metrics = {"host_copies": 0}
+            plan = self._lower_cached(query, table)
+            if plan.kind != "agg":
+                raise UnsupportedAggregation(
+                    f"{query.query_type} has no mergeable partials")
+            metrics["fused"] = plan.fused_reason is None
+            if plan.sparse:
+                metrics["route"] = "sparse"
+                out = self._run_sparse(plan, metrics)
+                pm = out["_keys"] != SENTINEL
+                present = out["_keys"][pm].astype(np.int64)
+                compact = {k: np.asarray(v)[pm] for k, v in out.items()
+                           if not k.startswith("_") or k == "_rows"
+                           or k.startswith("_nn_")}
+            else:
+                metrics["route"] = "unpacked"
+                partials = self._run_partials(plan, metrics)
+                present = np.nonzero(partials["_rows"] > 0)[0] \
+                    .astype(np.int64)
+                compact = {k: np.asarray(v)[present]
+                           for k, v in partials.items()}
+        return plan, present, compact, metrics
 
     def _assemble_agg(self, query, plan, arrays) -> QueryResult:
         """Final-arrays -> QueryResult by query type."""
@@ -748,6 +1057,25 @@ class QueryRunner:
             "size": int(sum(c.get("size", 0) for c in cols.values())),
         }
         return QueryResult(query, [record], [record], self.last_metrics)
+
+
+def _metric_path(m: dict) -> str:
+    """Which execution flavor served a statement (the JAX package's
+    path label): "cache" for a full-result hit (no dispatch ran),
+    "cube" for a cube serve, "batch" for a shared or deduplicated pass,
+    "sparse", "fused" (the fused reduce) or "dense" (the generic
+    reduce); tier-1 partial hits keep their dispatch's label."""
+    if m.get("cache_tier") == "full":
+        return "cache"
+    if m.get("cube"):
+        return "cube"
+    if m.get("batch_dedup") or m.get("batch_legs", 0) > 1:
+        return "batch"
+    if m.get("route") == "sparse":
+        return "sparse"
+    if m.get("fused"):
+        return "fused"
+    return "dense"
 
 
 def search_counts(mask: torch.Tensor, codes: list, cards: list) -> \

@@ -39,6 +39,14 @@ program through `rowprog.evaluate`, then `index_add_` /
 `scatter_reduce_` in int64 over the selected rows). `launches` counts
 launches of the generated kernel.
 
+`fused_reduce_seg` is the segment-extended variant that serves tier 1 of
+the result cache (executor.resultcache): the same generated kernel with
+every segment of a window [lo, lo + W) reducing into K groups of its own
+(key + (segment - lo) * K, W * K groups), so that one launch returns each
+segment's partials; `lo` is a launch parameter, so a window that slides
+at the same W compiles nothing. Its plain version is `fused_reduce_ref`
+with the same window, and `seg_launches` counts its launches.
+
 `fused_reduce_multi` runs N plans' legs in one launch for the batch
 executor (executor.batch): a kernel generated per batch composition from
 the legs' row functions (template `csrc/fused_reduce_multi_gen.cuh`,
@@ -65,6 +73,7 @@ INT64_LIMIT = 1 << 63               # sums accumulate exactly below this
 GROUP_CAP = 65536                   # the JAX package's factorized cap
 
 launches = 0                        # generated-kernel launches
+seg_launches = 0                    # segment-extended variant launches
 multi_launches = 0                  # multi-leg kernel launches
 
 
@@ -336,16 +345,45 @@ def fused_reduce(prog, inputs, valid, seg_mask, K):
     return _launch_gen(prog, inputs, valid, seg_mask, K)
 
 
-def fused_reduce_ref(prog, inputs, valid, seg_mask, K):
+def fused_reduce_seg(prog, inputs, valid, seg_mask, K, lo, W):
+    """fused_reduce with the segment-extended key: only the segments of
+    the window [lo, lo + W) count, and a row of segment s with key k in
+    [0, K) reduces into group (s - lo) * K + k of W * K. Returns (sums
+    int64 [W * K, n_sum], mins int32 [W * K, C - n_sum]).
+
+    CPU tensors run the plain version; CUDA tensors launch the plan's
+    segment-extended kernel (compiled once per (program, K, W)) or
+    raise."""
+    _check(prog, inputs, valid, seg_mask, K)
+    S = valid.shape[0]
+    if not (W >= 1 and 0 <= lo and lo + W <= S):
+        raise ValueError(f"window [{lo}, {lo + W}) outside {S} segments")
+    if valid.device.type == "cpu":
+        return fused_reduce_ref(prog, inputs, valid, seg_mask, K, (lo, W))
+    if valid.device.type != "cuda":
+        raise ValueError(f"fused_reduce_seg runs on cuda or cpu, not "
+                         f"{valid.device}")
+    return _launch_gen(prog, inputs, valid, seg_mask, K, (lo, W))
+
+
+def fused_reduce_ref(prog, inputs, valid, seg_mask, K, window=None):
     """The plain torch version of the kernel: the row program through
     rowprog.evaluate, then index_add_ and scatter_reduce_(amin) in int64
-    over the selected rows, one column at a time."""
+    over the selected rows, one column at a time. `window` (lo, W) gives
+    the segment-extended variant's W * K groups."""
     dev = valid.device
     base = (valid & seg_mask[:, None]).reshape(-1)
     regs = rowprog.evaluate(prog, inputs, base.numel(), dev)
     mask = base & (regs[prog.mask_reg] != 0)
     key = regs[prog.key_reg]
     mask = mask & (key >= 0) & (key < K)
+    if window is not None:
+        lo, W = window
+        S, R = valid.shape
+        seg = torch.arange(S, device=dev).repeat_interleave(R)
+        mask = mask & (seg >= lo) & (seg < lo + W)
+        key = key + (seg - lo) * K
+        K = W * K
     n_sum = prog.n_sum
     sums = torch.zeros((K, n_sum), dtype=torch.int64, device=dev)
     mins = torch.full((K, prog.n_cols - n_sum), MAX_VALUE,
@@ -384,18 +422,43 @@ def compiled(prog, K, device):
     return kern
 
 
-def _launch_gen(prog, inputs, valid, seg_mask, K):
-    global launches
+def compiled_seg(prog, K, W, device):
+    """The plan's segment-extended kernel for a window of W segments
+    (rowgen.kernel_source(prog, K, W)), compiled and loaded as
+    `compiled` does; memoized on the program per (K, W): one plan has
+    at most log2(S) of them, since the runner rounds W up to a power of
+    two."""
+    from tpu_olap_torch.kernels import cuda_build
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = ("seg", K, W, index)
+    kern = prog._device.get(key)
+    if kern is None:
+        kern = prog._device[key] = cuda_build.nvrtc_kernel(
+            rowgen.kernel_source(prog, K, W), rowgen.KERNEL,
+            rowgen.THREADS, rowgen.table_bytes(prog, W * K), index)
+    return kern
+
+
+def _launch_gen(prog, inputs, valid, seg_mask, K, window=None):
+    global launches, seg_launches
     dev = valid.device
     n_sum, C = prog.n_sum, prog.n_cols
-    sums = torch.zeros((K, n_sum), dtype=torch.int64, device=dev)
-    mins = torch.full((K, C - n_sum), MAX_VALUE, dtype=torch.int32,
+    G = K if window is None else window[1] * K
+    sums = torch.zeros((G, n_sum), dtype=torch.int64, device=dev)
+    mins = torch.full((G, C - n_sum), MAX_VALUE, dtype=torch.int32,
                       device=dev)
     if valid.numel() == 0:
         return sums, mins
-    kern = compiled(prog, K, dev)
+    if window is None:
+        kern, seg_lo, n_seg = compiled(prog, K, dev), 0, valid.shape[0]
+    else:
+        kern = compiled_seg(prog, K, window[1], dev)
+        seg_lo, n_seg = window
     data = prog.data_on(dev)
-    R, tiles_per_seg, n_tiles, grid = _grid(kern, valid)
+    R, tiles_per_seg, tile_lo, n_tiles, grid = _grid(kern, valid, seg_lo,
+                                                     n_seg)
     p = rowgen.Params()
     for i, t in enumerate(inputs):
         p.slot[i] = 0 if t is None else t.data_ptr()
@@ -406,10 +469,14 @@ def _launch_gen(prog, inputs, valid, seg_mask, K):
     p.data, p.sums, p.mins = data.data_ptr(), sums.data_ptr(), \
         mins.data_ptr()
     p.seg_rows, p.tiles_per_seg, p.n_tiles = R, tiles_per_seg, n_tiles
+    p.tile_lo, p.seg_lo = tile_lo, seg_lo
     values = _constants(prog)
     p.consts[:len(values)] = values
     kern.launch(grid, p, torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
+    if window is None:
+        launches += 1
+    else:
+        seg_launches += 1
     return sums, mins
 
 
@@ -421,19 +488,22 @@ def _constants(prog) -> list:
     return values
 
 
-def _grid(kern, valid):
-    """(R, tiles per segment, tiles, blocks) of a launch over valid's
-    [S, R] rows; raises where a block would count 2^32 rows in its
-    32-bit shared counters."""
+def _grid(kern, valid, seg_lo=0, n_seg=None):
+    """(R, tiles per segment, first tile, end tile, blocks) of a launch
+    over the segments [seg_lo, seg_lo + n_seg) of valid's [S, R] rows
+    (all of them by default); raises where a block would count 2^32 rows
+    in its 32-bit shared counters."""
     S, R = valid.shape
+    n_seg = S if n_seg is None else n_seg
     tile = rowgen.THREADS * rowgen.ROWS_PER_THREAD
     tiles_per_seg = -(-R // tile)
-    n_tiles = S * tiles_per_seg
-    grid = min(kern.max_blocks, n_tiles)
-    if -(-n_tiles // grid) * tile >= 1 << 32:
+    tile_lo = seg_lo * tiles_per_seg
+    n_tiles = (seg_lo + n_seg) * tiles_per_seg
+    grid = min(kern.max_blocks, n_tiles - tile_lo)
+    if -(-(n_tiles - tile_lo) // grid) * tile >= 1 << 32:
         raise ValueError(f"{valid.numel()} rows: a block would see 2^32 "
                          "rows or more")
-    return R, tiles_per_seg, n_tiles, grid
+    return R, tiles_per_seg, tile_lo, n_tiles, grid
 
 
 # ---------------------------------------------------------------------------

@@ -436,11 +436,13 @@ def call_source(prog: rp.RowProgram) -> list:
 
 
 def _device_source(prog: rp.RowProgram, K: int,
-                   namespace: str = NAMESPACE) -> str:
+                   namespace: str = NAMESPACE, seg_groups: int = 0) -> str:
     """The plan's glue for a fused-reduce template: its shape as
     constants, the calls of the row function (`call_source`), and the
     per-column reduce steps with literal table indexes, in `namespace`.
-    One group (K = 1) reduces in registers and warp shuffles."""
+    One group (K = 1) reduces in registers and warp shuffles.
+    `seg_groups` > 0 is the segment-extended variant's per-segment group
+    count (then K is the window's W * seg_groups)."""
     lay = layout(prog)
     n_min = prog.n_cols - prog.n_sum
     shared = table_bytes(prog, K) > 0
@@ -453,7 +455,8 @@ def _device_source(prog: rp.RowProgram, K: int,
          f"constexpr int kN32 = {lay.n32};",
          f"constexpr int kNMin = {lay.nmin};",
          f"constexpr bool kShared = {'true' if shared else 'false'};",
-         f"constexpr bool kOneGroup = {'true' if one_group else 'false'};"]
+         f"constexpr bool kOneGroup = {'true' if one_group else 'false'};",
+         f"constexpr long long kSegGroups = {int(seg_groups)};"]
     L += call_source(prog)
     # K == 1: per-thread accumulators, reduced across the warp at the end
     L.append("struct Acc { unsigned long long s[kN64 > 0 ? kN64 : 1]; "
@@ -543,10 +546,15 @@ def splice(template: Path, plan_source: str) -> str:
         .replace(SPLICE, plan_source)
 
 
-def kernel_source(prog: rp.RowProgram, K: int) -> str:
+def kernel_source(prog: rp.RowProgram, K: int, window: int = 0) -> str:
     """The whole NVRTC source of the plan's fused-reduce kernel: the
     template with the row function and its glue spliced in. It holds
-    none of the query's literals (see `constants`)."""
+    none of the query's literals (see `constants`). `window` W > 0 gives
+    the segment-extended variant: W * K groups, a row of window segment
+    j keyed j * K plus its key."""
+    if window:
+        return splice(TEMPLATE, row_source(prog) + _device_source(
+            prog, window * K, seg_groups=K))
     return splice(TEMPLATE, row_source(prog) + _device_source(prog, K))
 
 
@@ -561,6 +569,8 @@ class Params(ctypes.Structure):
                 ("seg_rows", ctypes.c_longlong),
                 ("tiles_per_seg", ctypes.c_longlong),
                 ("n_tiles", ctypes.c_longlong),
+                ("tile_lo", ctypes.c_longlong),
+                ("seg_lo", ctypes.c_longlong),
                 ("consts", ctypes.c_longlong * MAX_CONSTS),
                 ("vec", ctypes.c_int)]
 
