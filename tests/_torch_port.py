@@ -56,3 +56,13 @@ def sql_literals(module, starts=("SELECT",), skip=("multichip", "exchange",
                     and node.value.lstrip().startswith(starts):
                 out.append((fn.name, node.value))
     return out
+
+
+def cpu_engine(**kw):
+    """The port's Engine on the CPU, with `fallback_on_device_failure` off
+    unless the test sets it: a failure on the port's own device path then
+    fails the test, instead of being answered by the pandas interpreter
+    (which gives the JAX package's answer as well)."""
+    from tpu_olap_torch import Engine
+    kw.setdefault("fallback_on_device_failure", False)
+    return Engine(device="cpu", **kw)

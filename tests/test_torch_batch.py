@@ -29,7 +29,6 @@ from tpu_olap.executor import EngineConfig as JaxConfig
 from tpu_olap.kernels import filtereval as jax_fe
 from tpu_olap.kernels import groupby as jax_gb
 from tpu_olap.ir.filters import filter_from_json as jax_filter
-from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity
 from tpu_olap_torch.executor import batch
 from tpu_olap_torch.ir.filters import filter_from_json
@@ -40,6 +39,7 @@ from tpu_olap_torch.kernels import rowgen, rowprog
 
 from test_batch_executor import BATCH
 from test_torch_fused_reduce import SLOTS, _inputs, _random_case, _row_fn
+from _torch_port import cpu_engine
 
 
 def _frame():
@@ -63,7 +63,7 @@ def engines():
     jax_eng.register_table("t", df, time_column="ts", block_rows=1 << 12)
     out = {"jax": jax_eng}
     for mode in ("force", "never"):
-        e = Engine(device="cpu", use_fused_reduce=mode)
+        e = cpu_engine(use_fused_reduce=mode)
         e.register_table("t", df, time_column="ts", block_rows=1 << 12)
         out[mode] = e
     return out
@@ -162,9 +162,13 @@ def test_sql_batch_mixes_verbs_fallback_and_grouping_sets(engines):
 
 
 def test_multi_leg_failure_raises(engines, monkeypatch):
-    """A failure of the multi-leg kernel on the batch path raises: no
-    statement comes back from the single path in its place."""
+    """With fallback_on_device_failure off, a failure of the multi-leg
+    kernel on the batch path raises after its retries: no statement
+    comes back from the single path in its place. With it on (the
+    default, as in the JAX package), each leg is served by the single
+    path, its metrics naming the batch's error."""
     eng = engines["force"]
+    monkeypatch.setattr(eng.config, "fallback_on_device_failure", False)
 
     def boom(*a):
         raise RuntimeError("multi-leg launch failed")
@@ -177,6 +181,14 @@ def test_multi_leg_failure_raises(engines, monkeypatch):
         eng.sql_batch(BATCH)
     # only the legs that are single by shape ran alone
     assert len(singles) <= 2
+    monkeypatch.setattr(eng.config, "fallback_on_device_failure", True)
+    outs = eng.sql_batch(BATCH)
+    stmts = eng.runner.last_metrics["statements"]
+    assert any("multi-leg launch failed" in m.get("batch_error", "")
+               for m in stmts)
+    monkeypatch.undo()
+    for q, f in zip(BATCH, outs):
+        pd.testing.assert_frame_equal(f, eng.sql(q))
 
 
 def test_coalescer_gives_each_caller_its_answer(engines, singles):

@@ -20,13 +20,13 @@ import pytest
 
 from tpu_olap import Engine as JaxEngine
 from tpu_olap.executor import EngineConfig as JaxConfig
-from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity
 from tpu_olap_torch.cubes import (CubeSpec, agg_signature,
                                   cube_specs_from_workload, period_contains)
 from tpu_olap_torch.resilience.errors import UserError
 
 from test_cubes import FULL_DDL, N_ROWS, _df
+from _torch_port import cpu_engine
 
 REG = dict(time_column="ts", block_rows=1 << 11, time_partition="month")
 TINY = ("CREATE DRUID CUBE tiny ON t DIMENSIONS (g) GRANULARITY all "
@@ -38,7 +38,7 @@ def _pair(df=None, ddl=(), **kw):
     df = _df() if df is None else df
     jax = JaxEngine(JaxConfig(use_pallas="never", cube_auto_refresh=False,
                               **kw))
-    port = Engine(device="cpu", cube_auto_refresh=False, **kw)
+    port = cpu_engine(cube_auto_refresh=False, **kw)
     for eng in (jax, port):
         eng.register_table("t", df, **REG)
         for d in ddl:
@@ -244,7 +244,7 @@ def test_drop_table_cascades_to_cubes():
 def test_auto_refresh_maintainer_rebuilds():
     jax = JaxEngine(JaxConfig(use_pallas="never"))
     jax.register_table("t", _df(seed=3), **REG)
-    port = Engine(device="cpu", cube_auto_refresh=True,
+    port = cpu_engine(cube_auto_refresh=True,
                   cube_refresh_interval_s=0.05)
     port.register_table("t", _df(), **REG)
     port.sql(FULL_DDL)
@@ -260,7 +260,9 @@ def test_auto_refresh_maintainer_rebuilds():
     a = port.sql(G_SUM)
     assert port.runner.last_metrics["path"] == "cube"
     port.cubes.stop(join=True)
-    assert not port.cubes._thread.is_alive()
+    # the maintainer is a background graph of the stage scheduler
+    assert port.cubes._handle.cancelled and not port.cubes._handle.running
+    port.close()
     port.config.cube_rewrite_enabled = False
     pd.testing.assert_frame_equal(a, port.sql(G_SUM))
     assert_frame_parity(a, jax.sql(G_SUM), ordered=True, label="refreshed")
@@ -310,7 +312,7 @@ def test_ddl_create_snapshot_contract_and_drop():
         "time-dim"])
 def test_ddl_errors_are_user_errors(ddl):
     jax = JaxEngine(JaxConfig(use_pallas="never", cube_auto_refresh=False))
-    port = Engine(device="cpu", cube_auto_refresh=False)
+    port = cpu_engine(cube_auto_refresh=False)
     for eng in (jax, port):
         eng.register_table("t", _df(n=2000), **REG)
     from tpu_olap.resilience.errors import UserError as JaxUserError
@@ -353,7 +355,7 @@ def test_ddl_quoted_literals_with_parens_and_commas():
 def test_failed_build_not_retried_until_generation_moves():
     """A failing spec is recorded as failed and attempted once per base
     generation; nothing builds it on the host instead."""
-    port = Engine(device="cpu", cube_auto_refresh=False)
+    port = cpu_engine(cube_auto_refresh=False)
     port.register_table("t", _df(n=4000), **REG)
     with pytest.raises(UserError):
         port.sql("CREATE DRUID CUBE doomed ON t DIMENSIONS (g) "
@@ -379,7 +381,7 @@ def test_failed_build_not_retried_until_generation_moves():
 def test_failed_device_build_is_recorded_not_served(monkeypatch):
     """A build whose device pass raises is recorded as failed and raises:
     the registry never serves, nor builds elsewhere, in its place."""
-    port = Engine(device="cpu", cube_auto_refresh=False)
+    port = cpu_engine(cube_auto_refresh=False)
     port.register_table("t", _df(n=4000), **REG)
 
     def boom(query, table):
@@ -395,7 +397,7 @@ def test_failed_device_build_is_recorded_not_served(monkeypatch):
 
 
 def test_drop_during_inflight_build_leaves_no_orphan_storage():
-    port = Engine(device="cpu", cube_auto_refresh=False)
+    port = cpu_engine(cube_auto_refresh=False)
     port.register_table("t", _df(n=4000), **REG)
     port.sql(TINY)
     gate = threading.Event()

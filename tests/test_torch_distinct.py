@@ -21,12 +21,11 @@ from tpu_olap import Engine as JaxEngine
 from tpu_olap.bench import ssb as jax_ssb
 from tpu_olap.executor import EngineConfig as JaxConfig
 from tpu_olap.planner.fallback import FallbackError
-from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity, ssb
 from tpu_olap_torch.kernels.sparse_groupby import SENTINEL
 from tpu_olap_torch.planner.fallback import FallbackError as PortFallbackError
 
-from _torch_port import sql_literals as sql_of
+from _torch_port import cpu_engine, sql_literals as sql_of
 from test_theta_setops import _setop, _theta
 from test_theta_setops import setup as theta_setup  # noqa: F401 (fixture)
 
@@ -39,7 +38,7 @@ def ssb_pair():
     tables = jax_ssb.generate_tables(60_000, 0)
     jeng = JaxEngine(JaxConfig())
     jax_ssb.register_ssb(jeng, tables=tables, block_rows=8192)
-    peng = Engine(device="cpu")
+    peng = cpu_engine()
     _, denorm = ssb.register_ssb(peng, tables=tables, block_rows=8192)
     return jeng, peng, denorm, {}
 
@@ -127,7 +126,7 @@ def test_adaptive_sparse_cap(ssb_pair):
     """x4's groups overflow a 64-slot first table: one re-run at the next
     power of two, then the same answer."""
     jeng, _, _, _ = ssb_pair
-    peng = Engine(device="cpu", sparse_group_cap=64)
+    peng = cpu_engine(sparse_group_cap=64)
     _, _, denorm, _ = ssb_pair
     peng.register_table("lineorder", denorm, time_column=ssb.TIME_COL,
                         star_schema=ssb.star_schema(), block_rows=8192)
@@ -146,7 +145,7 @@ def test_packed_overflow_reruns_unpacked(ssb_pair):
     """Past result_group_cap present groups the packed buffer overflows
     and the query re-runs unpacked: same answer, a second copy."""
     _, _, denorm, _ = ssb_pair
-    peng = Engine(device="cpu", result_group_cap=64)
+    peng = cpu_engine(result_group_cap=64)
     peng.register_table("lineorder", denorm, time_column=ssb.TIME_COL,
                         star_schema=ssb.star_schema(), block_rows=8192)
     got = peng.sql(ssb.DISTINCT_QUERIES["x1"])
@@ -164,7 +163,7 @@ def test_packed_overflow_reruns_unpacked(ssb_pair):
 @pytest.fixture(scope="module")
 def sparse_pair():
     jeng = jax_sparse_tests._engine()
-    peng = Engine(device="cpu", dense_group_budget=64)
+    peng = cpu_engine(dense_group_budget=64)
     peng.register_table("t", jax_sparse_tests._df(), time_column="ts",
                         block_rows=512)
     return jeng, peng
@@ -204,7 +203,7 @@ def test_sparse_budget_raises(sparse_pair):
     fallback interpreter with the JAX package's reason and answer
     (integers exact)."""
     jeng = jax_sparse_tests._engine(sparse_group_budget=64)
-    peng = Engine(device="cpu", dense_group_budget=64,
+    peng = cpu_engine(dense_group_budget=64,
                   sparse_group_budget=64)
     peng.register_table("t", jax_sparse_tests._df(), time_column="ts",
                         block_rows=512)
@@ -224,7 +223,7 @@ THETA_SQL = [s for _, s in sql_of(jax_theta_tests) if "FROM events" in s] \
 @pytest.fixture(scope="module")
 def theta_pair(theta_setup):
     jeng, df = theta_setup
-    peng = Engine(device="cpu")
+    peng = cpu_engine()
     peng.register_table("events", df, time_column="ts")
     return jeng, peng
 
@@ -272,7 +271,7 @@ def test_sketch_state_budget_routes_to_sparse(sparse_pair):
     sql = "SELECT a, theta_sketch(v) AS d, count(*) AS n FROM t GROUP BY a"
     kw = dict(dense_sketch_state_budget=1 << 16)
     jeng = JaxEngine(JaxConfig(**kw))
-    peng = Engine(device="cpu", **kw)
+    peng = cpu_engine(**kw)
     df = jax_sparse_tests._df()
     for e in (jeng, peng):
         e.register_table("t", df, time_column="ts", block_rows=512)

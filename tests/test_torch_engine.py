@@ -19,7 +19,7 @@ from tpu_olap.executor import EngineConfig as JaxConfig
 from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity, ssb
 
-from _torch_port import carry_into
+from _torch_port import carry_into, cpu_engine
 from test_pallas_reduce import (COLCMP_QUERIES, MINMAX_QUERIES,
                                 PRECOMPUTED_DIM_QUERIES, WIDENED_QUERIES)
 from test_pallas_reduce import QUERIES as PALLAS_QUERIES
@@ -35,10 +35,10 @@ def ssb_engines():
         jax_ssb.register_ssb(e, tables=tables, block_rows=8192)
         out[("jax", mode)] = e
     for mode in ("auto", "force"):
-        e = Engine(device="cpu", use_fused_reduce=mode)
+        e = cpu_engine(use_fused_reduce=mode)
         ssb.register_ssb(e, tables=tables, block_rows=8192)
         out[("port", mode)] = e
-    carried = Engine(device="cpu")
+    carried = cpu_engine()
     carry_into(carried, out[("jax", "never")], "lineorder",
                ssb.star_schema())
     out["carried"] = carried
@@ -55,7 +55,7 @@ def t_engines():
         e.register_table("t", df, time_column="ts", block_rows=512)
         out[("jax", mode)] = e
     for mode in ("auto", "force"):
-        e = Engine(device="cpu", use_fused_reduce=mode)
+        e = cpu_engine(use_fused_reduce=mode)
         e.register_table("t", df, time_column="ts", block_rows=512)
         out[("port", mode)] = e
     return out

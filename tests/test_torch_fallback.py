@@ -2,10 +2,10 @@
 (tpu_olap_torch, on the CPU) against the JAX package.
 
 Every SQL statement of tests/test_tpch.py (read from that file) runs
-through `tpu_olap_torch.Engine(device="cpu")` on the test's own
-`_olps` data (12,000 rows): the port's `rewritten` flag must equal the
-JAX planner's for the same SQL, and its frame must equal the JAX
-package's answer. The JAX side is its pandas fallback, as the JAX test's
+through the port's Engine on the CPU (`_torch_port.cpu_engine`) on
+the test's own `_olps` data (12,000 rows): the port's `rewritten` flag
+must equal the JAX planner's for the same SQL, and its frame must equal
+the JAX package's answer. The JAX side is its pandas fallback, as the JAX test's
 own `_check` takes it (its planner's subquery hook runs the inner
 statements in that fallback too, so no jit is needed). Tolerances: the
 parity harness — integers and strings exact, floats at rtol 1e-9, and
@@ -31,12 +31,11 @@ from tpu_olap.executor import EngineConfig as JaxConfig
 from tpu_olap.planner.fallback import execute_fallback as jax_fallback
 from tpu_olap.planner.fallback import \
     grouping_set_legs as jax_grouping_set_legs
-from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity
 from tpu_olap_torch.bench import tpch as port_tpch
 from tpu_olap_torch.planner import fallback as port_fallback
 
-from _torch_port import sql_literals
+from _torch_port import cpu_engine, sql_literals
 
 TPCH_SQL = sql_literals(jax_tpch_tests, starts=("SELECT", "WITH"))
 APPROX = ("share", "supplier_cnt")
@@ -77,7 +76,7 @@ def _jax_fallback_only(engine):
 def tpch():
     jeng = _jax_fallback_only(_register_jax_olps(
         JaxEngine(JaxConfig())))
-    peng = Engine(device="cpu")
+    peng = cpu_engine()
     port_tpch.register_olps(peng, port_tpch.olps_frame(), block_rows=2048)
     return jeng, peng
 
@@ -152,7 +151,7 @@ def margins():
     """tests/test_sql_margins.py's `eng` fact (seed 17, 500 rows) in the
     port, and a JAX engine over the same frame for its fallback."""
     jeng, fact, _ = jax_margins_tests.eng.__wrapped__()
-    peng = Engine(device="cpu")
+    peng = cpu_engine()
     peng.register_table("fact", fact, time_column="ts")
     return jeng, peng
 
@@ -184,7 +183,7 @@ def test_sparse_budget_served_by_fallback(tpch):
            "FROM olps GROUP BY p_brand, s_nation, c_nation")
     budgets = dict(dense_group_budget=64, sparse_group_budget=64)
     jeng = _register_jax_olps(JaxEngine(JaxConfig(**budgets)))
-    peng = Engine(device="cpu", **budgets)
+    peng = cpu_engine(**budgets)
     port_tpch.register_olps(peng, port_tpch.olps_frame(), block_rows=2048)
     want = jeng.sql(sql)
     got = peng.sql(sql)
@@ -210,12 +209,17 @@ def test_plain_table_served_by_fallback(tpch):
                                   "test_q11_having_scalar_subquery",
                                   "test_q13_count_distribution"])
 def test_device_failure_propagates(tpch, monkeypatch, name):
-    """A failure in runner.execute (here a RuntimeError standing for a
-    launch or NVRTC error) reaches the caller of Engine.sql — for a
+    """With fallback_on_device_failure off, a failure in runner.execute
+    (here a RuntimeError standing for a launch or NVRTC error that
+    outlived the retries) reaches the caller of Engine.sql — for a
     rewritten statement, an inlined subquery and a derived table alike —
-    and the fallback interpreter never runs the whole statement."""
+    and the fallback interpreter never runs the whole statement. With it
+    on (the default, as in the JAX package), the interpreter serves the
+    statement and the metrics say why."""
     _, peng = tpch
     sql = dict(TPCH_SQL)[name]
+    want = peng.sql(sql)
+    monkeypatch.setattr(peng.config, "fallback_on_device_failure", False)
 
     def broken(*a, **kw):
         raise RuntimeError("CUDA error: launch failed")
@@ -235,3 +239,11 @@ def test_device_failure_propagates(tpch, monkeypatch, name):
     # its shape; the failure of its derived body on the device path
     # propagates out of it
     assert len(served) == (name == "test_q13_count_distribution")
+    monkeypatch.setattr(peng.config, "fallback_on_device_failure", True)
+    got = peng.sql(sql)
+    assert_frame_parity(got, want, ordered=True)
+    if name != "test_q13_count_distribution":
+        m = peng.runner.last_metrics
+        assert m["route"] == "fallback" and m["path"] == "fallback"
+        assert peng.last_plan.fallback_reason.startswith(
+            "device failure: RuntimeError")

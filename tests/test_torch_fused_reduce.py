@@ -19,14 +19,13 @@ from tpu_olap import Engine as JaxEngine
 from tpu_olap.bench import ssb as jax_ssb
 from tpu_olap.executor import EngineConfig as JaxConfig
 from tpu_olap.executor.lowering import lower as jax_lower
-from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity, ssb
 from tpu_olap_torch.executor.lowering import lower
 from tpu_olap_torch.kernels import fused_reduce as fr
 from tpu_olap_torch.kernels import rowprog
 from tpu_olap_torch.kernels.groupby import AggPlan, group_reduce
 
-from _torch_port import carry_into
+from _torch_port import carry_into, cpu_engine
 from test_pallas_reduce import (COLCMP_QUERIES, MINMAX_QUERIES,
                                 PRECOMPUTED_DIM_QUERIES, WIDENED_QUERIES)
 from test_pallas_reduce import QUERIES as PALLAS_QUERIES
@@ -41,13 +40,13 @@ def engines():
     jax_ssb_eng = JaxEngine(JaxConfig(use_pallas="force"))
     tables = jax_ssb.generate_tables(60_000, 0)
     jax_ssb.register_ssb(jax_ssb_eng, tables=tables, block_rows=8192)
-    port = Engine(device="cpu", use_fused_reduce="force")
+    port = cpu_engine(use_fused_reduce="force")
     carry_into(port, jax_ssb_eng, "lineorder", ssb.star_schema())
     out["ssb"] = (jax_ssb_eng, port)
     jax_t = JaxEngine(JaxConfig(use_pallas="force"))
     jax_t.register_table("t", pallas_table(), time_column="ts",
                          block_rows=512)
-    port_t = Engine(device="cpu", use_fused_reduce="force")
+    port_t = cpu_engine(use_fused_reduce="force")
     carry_into(port_t, jax_t, "t")
     out["t"] = (jax_t, port_t)
     return out

@@ -16,11 +16,11 @@ import pytest
 from tpu_olap import Engine as JaxEngine
 from tpu_olap.executor import EngineConfig as JaxConfig
 from tpu_olap.executor.dataset import HbmLedger as JaxLedger
-from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity
 from tpu_olap_torch.executor.dataset import HbmLedger
 
 from test_derived_dims import Q_REMAP, Q_TIMEFORMAT, _table
+from _torch_port import cpu_engine
 
 Q_MONTH = ("SELECT date_trunc('month', ts) AS m, sum(v) AS s FROM t "
            "GROUP BY date_trunc('month', ts) ORDER BY m")
@@ -104,9 +104,9 @@ def frames():
     jax = JaxEngine(JaxConfig(use_pallas="never",
                               hbm_budget_bytes=64 * 2**20))
     jax.register_table("t", df, time_column="ts")
-    free = Engine(device="cpu")
+    free = cpu_engine()
     free.register_table("t", df, time_column="ts")
-    free_fused = Engine(device="cpu", use_fused_reduce="force")
+    free_fused = cpu_engine(use_fused_reduce="force")
     free_fused.register_table("t", df, time_column="ts")
     want = {sql: jax.sql(sql) for sql in SEQUENCE}
     plain = {sql: free.sql(sql) for sql in SEQUENCE}
@@ -121,7 +121,7 @@ def frames():
 def test_budgeted_engine_answers_equal_while_evicting(frames, fused):
     df, want, plain, resident = frames
     budget = int(resident * 0.4)
-    eng = Engine(device="cpu", hbm_budget_bytes=budget,
+    eng = cpu_engine(hbm_budget_bytes=budget,
                  use_fused_reduce=fused)
     eng.register_table("t", df, time_column="ts")
     before = eng.runner._ledger.bytes_in_use
@@ -158,7 +158,7 @@ def test_batch_pins_the_union_of_its_legs(frames):
     evict but none of the batch's own, the answers equal the unbudgeted
     engine's, and the ledger stays exact."""
     df, want, plain, resident = frames
-    eng = Engine(device="cpu", hbm_budget_bytes=int(resident * 0.2),
+    eng = cpu_engine(hbm_budget_bytes=int(resident * 0.2),
                  use_fused_reduce="force")
     eng.register_table("t", df, time_column="ts")
     for sql in (Q_MONTH, Q_TIMEFORMAT):
@@ -185,7 +185,7 @@ def test_batch_pins_the_union_of_its_legs(frames):
 
 def test_drop_and_clear_release_the_ledger(frames):
     df = frames[0]
-    eng = Engine(device="cpu", hbm_budget_bytes=1 << 30)
+    eng = cpu_engine(hbm_budget_bytes=1 << 30)
     eng.register_table("t", df, time_column="ts")
     eng.register_table("u", df, time_column="ts")
     eng.sql(Q_REMAP)

@@ -16,6 +16,7 @@ from tpu_olap_torch.bench import assert_frame_parity
 from tpu_olap_torch.planner.fallback import FallbackError, execute_fallback
 
 from test_sql_extended import _df
+from _torch_port import cpu_engine
 
 ZONE = {f"c{i}": ("west" if i < 3 else "east") for i in range(6)}
 GROUPED = ("SELECT lookup(city, 'zone') AS z, sum(v) AS s FROM t "
@@ -40,7 +41,7 @@ def _register(eng, df):
 def engines():
     df = _df()
     return (_register(JaxEngine(JaxConfig(use_pallas="never")), df),
-            _register(Engine(device="cpu"), df), df)
+            _register(cpu_engine(), df), df)
 
 
 @pytest.mark.parametrize("sql", [GROUPED, PARTIAL], ids=["zone", "partial"])
@@ -78,7 +79,7 @@ def test_drop_table_as_in_jax():
     sql = "SELECT g, sum(v) AS s FROM t GROUP BY g ORDER BY g"
     errors = []
     for eng in (JaxEngine(JaxConfig(use_pallas="never")),
-                Engine(device="cpu")):
+                cpu_engine()):
         eng.register_table("t", df, time_column="ts")
         eng.sql(sql)
         eng.drop_table("t")
@@ -102,15 +103,15 @@ def test_drop_table_as_in_jax():
 
 def test_engine_surface_left_to_later_items():
     """The JAX Engine's methods the port still lacks are exactly those of
-    ROADMAP queue A items 12 (ingest, resilience) and 14 (tracing,
-    history, sys tables)."""
+    ROADMAP queue A item 14 (tracing, history, sys tables, SLO
+    accounting, the sentinel's WAL-lag probe); item 12's ingest surface
+    is ported."""
     def names(cls):
         return {n for n in dir(cls) if not n.startswith("__")}
     later = {
-        12: {"append", "compact_now", "checkpoint_now", "close",
-             "_observe_failure", "_wal_lag_probe"},
         14: {"history", "counters", "_sql_traced", "_sql_traced_inner",
              "_sql_batch_ids_inner", "_execute_sys_stmt",
-             "_execute_fallback_recorded"},
+             "_execute_fallback_recorded", "_observe_failure",
+             "_wal_lag_probe"},
     }
     assert names(JaxEngine) - names(Engine) == set().union(*later.values())

@@ -28,14 +28,13 @@ from tpu_olap.executor import EngineConfig as JaxConfig
 from tpu_olap.executor import QueryRunner as JaxRunner
 from tpu_olap.ir import serde as jax_serde
 from tpu_olap.kernels.topk import top_k_groups as jax_top_k_groups
-from tpu_olap_torch import Engine
 from tpu_olap_torch.api.engine import NotYetPorted
 from tpu_olap_torch.executor import EngineConfig, QueryRunner
 from tpu_olap_torch.ir.serde import query_from_json
 from tpu_olap_torch.kernels.topk import top_k_groups
 from tpu_olap_torch.segments.carry import carry_table
 
-from _torch_port import carry_into, export_segments
+from _torch_port import carry_into, cpu_engine, export_segments
 from test_executor import DF, TABLE
 from test_sql_extended import _df as sql_extended_df
 
@@ -188,7 +187,7 @@ def engines():
     jax = JaxEngine()
     jax.register_table("t", df, time_column="ts")
     jax.register_table("dim", dim, accelerate=False)
-    port = Engine(device="cpu")
+    port = cpu_engine()
     carry_into(port, jax, "t")
     port.register_table("dim", dim, accelerate=False)
     return jax, port, df
@@ -307,9 +306,33 @@ def test_sql_scan_with_nothing_ported_missing(engines):
     ("EXPLAIN ANALYZE SELECT count(*) AS n FROM t", "item 14"),
 ])
 def test_unported_verbs_raise(engines, sql, item):
-    _, port, _ = engines
-    with pytest.raises(NotYetPorted, match=f"not yet ported.*{item}"):
-        port.sql(sql)
+    """EXPLAIN ANALYZE (item 14) still raises NotYetPorted. The ingest
+    verbs of item 12 are ported: on fresh engines over the same table
+    they answer (or refuse) as the JAX package does."""
+    _, port, df = engines
+    if item != "item 12":
+        with pytest.raises(NotYetPorted, match=f"not yet ported.*{item}"):
+            port.sql(sql)
+        return
+    jax = JaxEngine(JaxConfig(ingest_auto_compact=False))
+    fresh = cpu_engine(ingest_auto_compact=False)
+    answers = []
+    for eng in (jax, fresh):
+        eng.register_table("t", df, time_column="ts")
+        try:
+            answers.append(eng.sql(sql))
+        except Exception as e:  # noqa: BLE001 — compared below
+            answers.append(e)
+        eng.close()
+    want, got = answers
+    if isinstance(want, Exception):
+        assert type(got).__name__ == type(want).__name__
+        assert str(got) == str(want)
+        return
+    skip = {"generation", "ms"}
+    assert list(got.columns) == list(want.columns)
+    cols = [c for c in want.columns if c not in skip]
+    pd.testing.assert_frame_equal(got[cols], want[cols])
 
 
 @pytest.mark.parametrize("sql, status", [

@@ -19,12 +19,11 @@ import pytest
 import test_chunked_fallback as jax_chunked_tests
 from tpu_olap import Engine as JaxEngine
 from tpu_olap.executor import EngineConfig as JaxConfig
-from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity
 from tpu_olap_torch.planner import fallback as port_fallback
 from tpu_olap_torch.planner.exprutil import contains_agg
 
-from _torch_port import export_segments
+from _torch_port import cpu_engine, export_segments
 
 BLOCK_ROWS = 1024
 PRUNE = dict(columns=["ts", "category", "city", "amount"],
@@ -50,7 +49,7 @@ def _register(engine, paths, **kw):
 @pytest.fixture(scope="module")
 def pair(paths):
     return (_register(JaxEngine(JaxConfig()), paths),
-            _register(Engine(device="cpu"), paths))
+            _register(cpu_engine(), paths))
 
 
 def _assert_same_segments(a, b):
@@ -75,7 +74,7 @@ def _assert_same_segments(a, b):
 def test_parquet_segments_equal_jax(paths, prune):
     kw = PRUNE if prune else {}
     jeng = _register(JaxEngine(JaxConfig()), paths, **kw)
-    peng = _register(Engine(device="cpu"), paths, **kw)
+    peng = _register(cpu_engine(), paths, **kw)
     jentry, pentry = jeng.catalog.get("t"), peng.catalog.get("t")
     _assert_same_segments(export_segments(jentry.segments),
                           export_segments(pentry.segments))
@@ -117,7 +116,7 @@ def chunk_engines(paths):
     """Whole-frame, chunked and parallel-chunked port engines over the
     dataset, as tests/test_chunked_fallback.py builds the JAX ones."""
     def make(**kw):
-        return _register(Engine(device="cpu", **kw), paths)
+        return _register(cpu_engine(**kw), paths)
     return {"whole": make(fallback_chunk_rows=10**9),
             "chunked": make(fallback_chunk_rows=100,
                             fallback_chunk_batch_rows=1024,

@@ -21,11 +21,10 @@ import torch
 
 from tpu_olap import Engine as JaxEngine
 from tpu_olap.executor import EngineConfig as JaxConfig
-from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import assert_frame_parity
 from tpu_olap_torch.kernels import fused_reduce
 
-from _torch_port import carry_into
+from _torch_port import carry_into, cpu_engine
 from test_result_cache import AGG_SQL, GROUP_SQL, _df, _win_sql
 
 CACHES = dict(result_cache_enabled=True, segment_cache_enabled=True,
@@ -57,7 +56,7 @@ def _jax(df, **kw):
 
 
 def _port(jax_eng, **kw):
-    eng = Engine(device="cpu", use_fused_reduce="force",
+    eng = cpu_engine(use_fused_reduce="force",
                  **{**CACHES, **kw})
     carry_into(eng, jax_eng, "t")
     return eng
@@ -117,7 +116,7 @@ def test_full_cache_serves_repeat_with_real_cache_hit(df):
 
 
 def test_ingest_bumps_generation_and_invalidates_both_tiers(df):
-    jax, port = _jax(df), Engine(device="cpu", **CACHES)
+    jax, port = _jax(df), cpu_engine(**CACHES)
     port.register_table("t", df, **REG)
     win = _win_sql("2023-01-01", "2023-02-01")
     gen0 = port.catalog.get("t").segments.generation
@@ -137,14 +136,14 @@ def test_ingest_bumps_generation_and_invalidates_both_tiers(df):
     assert not b.equals(a)
     assert_frame_parity(b, jax.sql(GROUP_SQL), ordered=True,
                         label="post-ingest")
-    plain = Engine(device="cpu")
+    plain = cpu_engine()
     plain.register_table("t", df.iloc[: len(df) // 2], **REG)
     pd.testing.assert_frame_equal(b, plain.sql(GROUP_SQL))
     assert port.runner.result_cache.snapshot()["full"]["entries"] <= 2
 
 
 def test_clear_druid_cache_clears_both_tiers(df):
-    port = Engine(device="cpu", **CACHES)
+    port = cpu_engine(**CACHES)
     port.register_table("t", df, **REG)
     port.sql(GROUP_SQL)
     port.sql(_win_sql("2023-01-01", "2023-02-01"))
@@ -160,7 +159,7 @@ def test_clear_druid_cache_clears_both_tiers(df):
 
 
 def test_drop_table_purges_cache_entries(df):
-    port = Engine(device="cpu", **CACHES)
+    port = cpu_engine(**CACHES)
     port.register_table("t", df, **REG)
     port.sql(GROUP_SQL)
     port.drop_table("t")

@@ -23,11 +23,11 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import ssb
 from tpu_olap_torch.kernels import fused_reduce as fr
 from tpu_olap_torch.kernels import rowgen
 from tpu_olap_torch.kernels import rowprog as rp
+from _torch_port import cpu_engine
 
 N_RANDOM = 1500
 I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
@@ -170,7 +170,7 @@ def _op_case(op):
 def _ssb_calls(queries=ssb.QUERIES):
     """Every fused-reduce call of the 13 SSB queries on a small table
     (CPU, the fused path forced): (name, program, inputs, base mask)."""
-    eng = Engine(device="cpu", use_fused_reduce="force")
+    eng = cpu_engine(use_fused_reduce="force")
     ssb.register_ssb(eng, tables=ssb.generate_tables(20_000, seed=0))
     calls = {}
     real = fr.fused_reduce

@@ -26,7 +26,6 @@ from tpu_olap.executor import EngineConfig as JaxConfig
 from tpu_olap.executor import QueryRunner as JaxRunner
 from tpu_olap.executor.lowering import lower as jax_lower
 from tpu_olap.ir import serde as jax_serde
-from tpu_olap_torch import Engine
 from tpu_olap_torch.bench import ssb
 from tpu_olap_torch.executor import EngineConfig, QueryRunner
 from tpu_olap_torch.executor import runner as runner_mod
@@ -35,7 +34,7 @@ from tpu_olap_torch.ir.serde import query_from_json
 from tpu_olap_torch.kernels import row_mask, rowgen
 from tpu_olap_torch.segments.carry import carry_table
 
-from _torch_port import carry_into, export_segments
+from _torch_port import carry_into, cpu_engine, export_segments
 from test_executor import DF, TABLE
 from test_pallas_reduce import _table as nullable_table
 from test_torch_rowgen import _check as check_row_function
@@ -217,7 +216,7 @@ def ssb_engines():
     jax.register_table("lo_month", jax_ssb.denormalize(tables),
                        time_column=jax_ssb.TIME_COL, block_rows=1024,
                        time_partition="month")
-    port = Engine(device="cpu")
+    port = cpu_engine()
     carry_into(port, jax, "lineorder", ssb.star_schema())
     carry_into(port, jax, "lo_month")
     return jax, port, tables
@@ -272,7 +271,7 @@ def test_nullable_scan_and_untraced_mask_match_jax():
     df.loc[df.index[::37], "fprice"] = np.nan
     jax = JaxEngine()
     jax.register_table("t", df, time_column="ts", block_rows=512)
-    port = Engine(device="cpu")
+    port = cpu_engine()
     carry_into(port, jax, "t")
     for sql, traced in (
             ("SELECT ts, color, qty, fprice FROM t LIMIT 400", True),

@@ -8,19 +8,28 @@ DATASOURCE`), and the rollup-cube DDL (`CREATE DRUID CUBE … ON …`,
 CUBES`).
 
 Statements the planner rewrites run on the device path. The pandas
-fallback interpreter (`planner.fallback`) serves a statement in three
-cases only, all decided by the statement's shape: the planner did not
-rewrite it, its table is plain (`accelerate=False`), or lowering raised
-one of the four `Unsupported*` types. Every other failure on the device
-path — an NVRTC compile error, a launch or CUDA error, anything else
-`runner.execute` raises — propagates to the caller: nothing reroutes a
-query off the device. Each fallback answer records its reason in
-`last_plan.fallback_reason` and `runner.last_metrics["route"] ==
-"fallback"`. Before the device path, a rewritten aggregate that a
-materialized rollup cube covers is served by folding the cube's stored
-partials on the host (planner.cuberewrite; route "cube"). Verbs of
-subsystems not ported yet (INSERT, COMPACT, CHECKPOINT, EXPLAIN ANALYZE)
-raise `NotYetPorted`, naming the ROADMAP item.
+fallback interpreter (`planner.fallback`) serves a statement when the
+planner did not rewrite it, its table is plain (`accelerate=False`), or
+lowering raised one of the four `Unsupported*` types — and, as in the
+JAX package, in two resilience cases: the device circuit breaker is
+open (path "fallback_breaker"), or a device failure outlived the
+runner's `dispatch_retries` and `fallback_on_device_failure` is set
+(path "fallback", with the attempts' `retries` and `retry_errors` in
+the metrics). With `fallback_on_device_failure` off both raise; an
+admission shed (`QueryShed`) always raises. Each fallback answer
+records its reason in `last_plan.fallback_reason` and
+`runner.last_metrics["route"] == "fallback"`. Before the device path, a
+rewritten aggregate that a materialized rollup cube covers is served by
+folding the cube's stored partials on the host, plus the delta
+segments' partials from the device (planner.cuberewrite; route
+"cube").
+
+Real-time ingest (segments.delta): `append`, `compact_now`,
+`checkpoint_now` and the verbs `INSERT INTO … VALUES`, `COMPACT DRUID
+TABLE`, `CHECKPOINT DRUID TABLE`; `register_table` replays a table's WAL
+and restores its checkpoint, `drop_table` deletes both, and `close`
+joins the background graphs (compactor, WAL flush, cube maintainer).
+EXPLAIN ANALYZE raises `NotYetPorted`, naming its ROADMAP item.
 
 `sql_batch` runs several statements as one submission: rewritten
 statements against one table share scans (executor.batch), and the
@@ -54,7 +63,10 @@ from tpu_olap_torch.kernels.timebucket import UnsupportedGranularity
 from tpu_olap_torch.planner import DruidPlanner
 from tpu_olap_torch.planner.cuberewrite import try_serve_cube
 from tpu_olap_torch.planner.fallback import execute_fallback
-from tpu_olap_torch.resilience.errors import UserError
+from tpu_olap_torch.resilience.errors import (BreakerOpen, QueryShed,
+                                              UserError)
+from tpu_olap_torch.resilience.faults import maybe_inject
+from tpu_olap_torch.segments.delta import IngestManager
 from tpu_olap_torch.segments.ingest import (DEFAULT_BLOCK_ROWS, ingest_arrow,
                                             ingest_parquet_stream)
 
@@ -97,6 +109,8 @@ class Engine:
         self.catalog.device_runner = self._run_stmt
         # materialized rollup cubes (tpu_olap_torch.cubes)
         self.cubes = CubeRegistry(self)
+        # real-time ingest: deltas, WALs, the compactor, checkpoints
+        self.ingest = IngestManager(self)
 
     # ------------------------------------------------------- registration
 
@@ -131,6 +145,10 @@ class Engine:
         """
         if data is None and segments is None:
             raise ValueError("register_table needs data or segments")
+        # "ingest" fault site: a raised fault aborts registration before
+        # any segment state is built, so that a failed ingest never
+        # leaves a half-registered table behind
+        maybe_inject(self.config, "ingest", 0)
         if not accelerate:
             segments = None
         column_map = dict(column_map) if column_map else None
@@ -205,11 +223,64 @@ class Engine:
         # clear_cache purges them eagerly with the resident stacks
         with self.device_lock:
             self.runner.clear_cache(name)
+        # real-time ingest: a first registration with an existing WAL is
+        # crash recovery (restore the checkpoint, replay the WAL tail to
+        # the acknowledged state); re-registering a live table resets
+        # its log and store instead (the appends belonged to the old
+        # data)
+        self.ingest.on_register(entry)
         # cube cascade: rollups over this table are now stale (the
         # rewrite pass stops serving them at its generation check) and
         # the maintainer wakes to rebuild them
         self.cubes.on_table_registered(name)
         return entry
+
+    def append(self, table: str, rows) -> dict:
+        """Real-time append: `rows` (a list of dicts or a DataFrame,
+        columns within the table's schema, time under the registered
+        time column or ``__time``) land in the table's mutable delta and
+        are queryable at once alongside the sealed segments, through the
+        same kernels and caches. With `ingest_wal_dir` set the batch is
+        framed into the table's write-ahead log before it is
+        acknowledged, so that a crash replays to the acknowledged state
+        at the next registration. A delta at `ingest_max_delta_rows`
+        sheds with IngestBackpressure, never dropping a row. SQL:
+        ``INSERT INTO t (cols) VALUES (...)``.
+
+        Returns {table, rows, generation, sealed_generation, delta_rows,
+        watermark, wal_seq}. The JAX package's W3C `traceparent` comes
+        with ROADMAP queue A item 14."""
+        return self.ingest.append(table, rows)
+
+    def compact_now(self, table: str | None = None):
+        """Seal the delta rows into time-partitioned sealed segments, now
+        (the background compactor's synchronous spelling). `table=None`
+        compacts every table with a non-empty delta."""
+        if table is None:
+            return self.ingest.compact_all()
+        return self.ingest.compact_now(table)
+
+    def checkpoint_now(self, table: str | None = None):
+        """Checkpoint a table's sealed scope durably: compact the delta,
+        spill the sealed segments as checksummed chunk files under
+        `ingest_store_dir`, advance the manifest atomically and truncate
+        the WAL through the lag-one watermark; a restart then replays
+        only the tail past it. SQL: ``CHECKPOINT DRUID TABLE t``.
+        `table=None` checkpoints every table with ingest state."""
+        if table is None:
+            return self.ingest.checkpoint_all()
+        return self.ingest.checkpoint_now(table)
+
+    def close(self):
+        """Cancel and join every background graph the engine owns — the
+        compactor and WAL flushers, the cube maintainer — and the stage
+        scheduler's ticker, and close the WALs. The engine stays
+        queryable; appends reopen WALs and re-register their graphs on
+        demand. Call it before dropping an engine, or its threads
+        outlive it."""
+        self.ingest.stop()
+        self.cubes.stop(join=True)
+        self.runner.stages.stop()
 
     def register_lookup(self, name: str, mapping: dict):
         """Register a named lookup map (Druid lookup extraction fn). SQL
@@ -268,26 +339,54 @@ class Engine:
             res = try_serve_cube(self, plan)
             if res is not None:
                 return self._frame_from(plan, res)
+        device = {}
         if plan.rewritten:
             try:
                 res = self.runner.execute(plan.query, plan.entry.segments)
             except _UNSUPPORTED as e:
                 # a shape lowering refuses (e.g. a sparse GroupBy past
-                # sparse_group_budget): the interpreter serves it. Any
-                # other failure propagates.
+                # sparse_group_budget): the interpreter serves it
                 plan.query = None
                 plan.fallback_reason = f"lowering failed: {e}"
+            except QueryShed:
+                # overload: the slower interpreter would amplify it
+                raise
+            except BreakerOpen as e:
+                # the device is sick, the host is fine: degraded but
+                # exact serving from the interpreter
+                if not self.config.fallback_on_device_failure:
+                    raise
+                plan.query = None
+                plan.fallback_reason = f"breaker open: {e}"
+                device = {"fallback_breaker": True}
+            except Exception as e:
+                # the runner's retries ran out (a launch or CUDA error,
+                # a failed copy): the interpreter serves the statement,
+                # recorded as such, or the error propagates
+                if not self.config.fallback_on_device_failure:
+                    raise
+                plan.query = None
+                plan.fallback_reason = \
+                    f"device failure: {type(e).__name__}: {e}"
+                m = self.runner.last_metrics
+                device = {k: m[k] for k in ("retries", "retry_errors")
+                          if k in m}
             else:
                 return self._frame_from(plan, res)
-        return self._execute_fallback(plan)
+        return self._execute_fallback(plan, device)
 
-    def _execute_fallback(self, plan) -> pd.DataFrame:
+    def _execute_fallback(self, plan, device=None) -> pd.DataFrame:
         """The pandas interpreter over the whole statement; its runner
-        metrics name the route and the reason."""
+        metrics name the route, the path ("fallback_breaker" while the
+        breaker is open, else "fallback"), the reason and, after a
+        device failure, the runner's retries."""
         out = execute_fallback(plan.stmt, self.catalog, self.config)
+        device = dict(device or {})
+        path = "fallback_breaker" if device.pop("fallback_breaker", False) \
+            else "fallback"
         self.runner.last_metrics = {
-            "route": "fallback", "host_copies": 0,
-            "fallback_reason": plan.fallback_reason}
+            "route": "fallback", "path": path, "host_copies": 0,
+            "fallback_reason": plan.fallback_reason, **device}
         return out
 
     def _try_grouping_sets_union(self, plan):
@@ -378,7 +477,11 @@ class Engine:
         grouping sets and statements the planner does not rewrite run
         alone, as through `sql`. A leg whose lowering raised one of the
         four `Unsupported*` refusals is served by the single path (and
-        so by the fallback interpreter); any other failure raises.
+        so by the fallback interpreter), as is a leg of a shared pass that
+        met an open breaker or, with `fallback_on_device_failure` set,
+        failed on the device after its retries (the single path retries
+        it and may fall back; its metrics carry "batch_error"). An
+        admission shed, and any other failure, raises.
         Results come back in input order; `runner.last_metrics`
         then holds each statement's metrics under "statements"."""
         return self.sql_batch_ids(queries)[0]
@@ -394,6 +497,7 @@ class Engine:
         groups: dict[str, list[int]] = {}
         metrics: list = [{} for _ in queries]
         qids = [self._new_query_id() for _ in queries]
+        batch_errors: dict[int, str] = {}
         self._nested = []
         for i, q in enumerate(queries):
             verb = _match_verb(q)
@@ -421,16 +525,19 @@ class Engine:
                 [plans[i].query for i in idxs],
                 self.catalog.get(name).segments)
             for i, b in zip(idxs, boxed):
-                if isinstance(b, _UNSUPPORTED):
-                    continue  # the single path serves it (fallback)
                 if isinstance(b, BaseException):
-                    raise b
+                    if not _single_path_serves(b, self.config):
+                        raise b
+                    batch_errors[i] = f"{type(b).__name__}: {b}"
+                    continue
                 outs[i] = self._frame_from(plans[i], b)
                 metrics[i] = b.metrics
         for i, plan in plans.items():
             if outs[i] is None:
                 outs[i] = self._execute_plan(plan)
                 metrics[i] = self.runner.last_metrics
+                if i in batch_errors:
+                    metrics[i]["batch_error"] = batch_errors[i]
         if plans:
             self.last_plan = plans[max(plans)]
         self.runner.last_metrics = {"route": "sql_batch",
@@ -497,14 +604,16 @@ class Engine:
 
     def drop_table(self, name: str):
         """DROP the datasource: purge its resident columns, memoized
-        plans, cap hints and both result-cache tiers, unregister it, and
-        drop the cubes over it with their storage tables. A later
-        registration under the same name starts from nothing. The JAX
-        package's ingest cascade comes with real-time ingest (ROADMAP
-        queue A item 12)."""
+        plans, cap hints and both result-cache tiers, unregister it,
+        delete its delta, WAL and checkpoint store, and drop the cubes
+        over it with their storage tables. A later registration under the
+        same name starts from nothing."""
         with self.device_lock:
             self.runner.clear_cache(name)
         self.catalog.drop(name)
+        # ingest cascade: the delta state dies with the table, and its
+        # WAL and checkpoint store are deleted
+        self.ingest.on_drop(name)
         self.cubes.on_table_dropped(name)
 
     # -------------------------------------------------------------- cubes
@@ -523,6 +632,16 @@ class Engine:
         """DROP DRUID CUBE analog: unregister the cube and its backing
         segment table. Returns False when no such cube exists."""
         return self.cubes.drop(name)
+
+
+def _single_path_serves(err: BaseException, config) -> bool:
+    """Whether a boxed batch leg's failure goes to the single-query path
+    (which retries it, and falls back as `_execute_plan` says) rather
+    than out of sql_batch."""
+    if isinstance(err, _UNSUPPORTED + (BreakerOpen,)):
+        return True
+    return isinstance(err, Exception) and not isinstance(err, QueryShed) \
+        and config.fallback_on_device_failure
 
 
 # --------------------------------------------------------------------------
@@ -553,15 +672,20 @@ _DROP_CUBE_RE = re.compile(
     r"^\s*drop\s+druid\s+cube\s+(\w+)\s*;?\s*$", re.I)
 _REFRESH_CUBES_RE = re.compile(
     r"^\s*refresh\s+druid\s+cubes\s*;?\s*$", re.I)
+# real-time ingest verbs: INSERT INTO t (a, b) VALUES (...), (...) and
+# COMPACT DRUID TABLE t, the SQL spellings of Engine.append and
+# Engine.compact_now; CHECKPOINT DRUID TABLE t spills the sealed scope to
+# the durable segment store and truncates the WAL (Engine.checkpoint_now)
+_INSERT_RE = re.compile(
+    r"^\s*insert\s+into\s+(\w+)\s*\(([^)]*)\)\s*values\s*(.+?)\s*;?\s*$",
+    re.I | re.S)
+_COMPACT_RE = re.compile(
+    r"^\s*compact\s+druid\s+table\s+(\w+)\s*;?\s*$", re.I)
+_CHECKPOINT_RE = re.compile(
+    r"^\s*checkpoint\s+druid\s+table\s+(\w+)\s*;?\s*$", re.I)
 # verbs of subsystems the port does not have yet: (pattern, what, where
 # the ROADMAP queues it)
 _NOT_PORTED = (
-    (re.compile(r"^\s*insert\s+into\s", re.I),
-     "INSERT (real-time ingest)", "queue A item 12 (ingest)"),
-    (re.compile(r"^\s*compact\s+druid\s+table\b", re.I),
-     "COMPACT DRUID TABLE", "queue A item 12 (ingest)"),
-    (re.compile(r"^\s*checkpoint\s+druid\s+table\b", re.I),
-     "CHECKPOINT DRUID TABLE", "queue A item 12 (durable store)"),
     (_EXPLAIN_ANALYZE_RE, "EXPLAIN ANALYZE (query tracing)",
      "queue A item 14 (surface and tooling)"),
 )
@@ -601,11 +725,120 @@ def _match_verb(query: str):
         return lambda eng: _run_drop_cube(eng, name)
     if _REFRESH_CUBES_RE.match(query):
         return _run_refresh_cubes
+    m = _INSERT_RE.match(query)
+    if m:
+        table, cols, values = m.group(1), m.group(2), m.group(3)
+        return lambda eng: _run_insert(eng, table, cols, values)
+    m = _COMPACT_RE.match(query)
+    if m:
+        table = m.group(1)
+        return lambda eng: _run_compact(eng, table)
+    m = _CHECKPOINT_RE.match(query)
+    if m:
+        table = m.group(1)
+        return lambda eng: _run_checkpoint(eng, table)
     for pattern, what, item in _NOT_PORTED:
         if pattern.match(query):
             raise NotYetPorted(f"not yet ported: {what}; see ROADMAP.md "
                                f"{item}")
     return None
+
+
+_TS_LITERAL_RE = re.compile(r"^timestamp\s+'((?:[^']|'')*)'$", re.I)
+
+
+def _parse_sql_literal(tok: str):
+    """One VALUES literal -> python scalar: NULL, TRUE/FALSE, numbers,
+    'string' ('' escapes), TIMESTAMP 'iso'."""
+    t = tok.strip()
+    up = t.upper()
+    if up == "NULL":
+        return None
+    if up == "TRUE":
+        return 1
+    if up == "FALSE":
+        return 0
+    m = _TS_LITERAL_RE.match(t)
+    if m:
+        return m.group(1).replace("''", "'")
+    if t.startswith("'"):
+        if not t.endswith("'") or len(t) < 2:
+            raise UserError(f"unterminated string literal {tok!r}")
+        return t[1:-1].replace("''", "'")
+    try:
+        return int(t)
+    except ValueError:
+        pass
+    try:
+        return float(t)
+    except ValueError:
+        raise UserError(
+            f"cannot parse INSERT literal {tok!r}") from None
+
+
+def _run_insert(eng: Engine, table: str, cols: str,
+                values: str) -> pd.DataFrame:
+    """INSERT INTO t (a, b, ...) VALUES (...), (...) — the SQL spelling
+    of Engine.append. Literal lists are quote-aware
+    (strings may contain commas/parens); every tuple must match the
+    column list's arity."""
+    names = [c.strip() for c in cols.split(",") if c.strip()]
+    if not names:
+        raise UserError("INSERT INTO needs a column list")
+    rows = []
+    for tup in _split_top_commas(values):
+        t = tup.strip()
+        if not (t.startswith("(") and t.endswith(")")):
+            raise UserError(
+                f"INSERT VALUES expects parenthesized tuples, got "
+                f"{t[:40]!r}")
+        items = _split_top_commas(t[1:-1])
+        if len(items) != len(names):
+            raise UserError(
+                f"INSERT tuple has {len(items)} values for "
+                f"{len(names)} columns")
+        rows.append({n: _parse_sql_literal(v)
+                     for n, v in zip(names, items)})
+    out = eng.append(table, rows)
+    return pd.DataFrame([{
+        "table": table, "rows": out["rows"],
+        "delta_rows": out["delta_rows"],
+        "generation": out["generation"],
+        "wal_seq": out["wal_seq"]}])
+
+
+def _run_compact(eng: Engine, table: str) -> pd.DataFrame:
+    res = eng.compact_now(table)
+    if res is None:
+        return pd.DataFrame([{"table": table, "status": "empty-delta",
+                              "rows_sealed": 0, "ms": 0.0}])
+    if res.get("status") != "compacted":
+        # skipped, not empty: a compaction already in flight or the
+        # breaker is open — the operator should retry
+        return pd.DataFrame([{"table": table, "status": res["status"],
+                              "rows_sealed": 0, "ms": 0.0}])
+    return pd.DataFrame([{
+        "table": table, "status": "compacted",
+        "rows_sealed": res["rows_sealed"],
+        "ms": round(res["ms"], 3)}])
+
+
+def _run_checkpoint(eng: Engine, table: str) -> pd.DataFrame:
+    """CHECKPOINT DRUID TABLE t: compact + spill
+    + manifest advance + WAL truncation, reported honestly — `status`
+    is `checkpointed`, `noop` (sealed scope unchanged since the last
+    manifest), `busy`, `no-store` (ingest_store_dir unset), or `error`
+    (from the compaction's auto-hook)."""
+    res = eng.checkpoint_now(table)
+    return pd.DataFrame([{
+        "table": table, "status": res.get("status"),
+        "checkpoint_id": res.get("checkpoint_id"),
+        "segments": res.get("segments"),
+        "files_written": res.get("files_written"),
+        "chunks_reused": res.get("chunks_reused"),
+        "bytes": res.get("bytes"),
+        "wal_frames_truncated": res.get("wal_frames_truncated"),
+        "ms": round(res.get("ms") or 0.0, 3)}])
 
 
 def _run_clear(eng: Engine, table: str | None) -> pd.DataFrame:

@@ -20,17 +20,17 @@ and keeping the result as *unfinalized partials*:
 Every build stamps the base table's ingest generation. A cube whose
 base generation moved is STALE: the rewrite pass refuses it at
 generation-check time (the result cache's contract: a stale entry is
-unservable before any purge runs) and the background maintainer thread
-rebuilds it under the runner's dispatch_lock. A build that fails is
+unservable before any purge runs) and the background maintainer, a
+periodic graph of the runner's stage scheduler, rebuilds it through
+`compute_partials` (an admission slot, the breaker check,
+dispatch_lock and the retry layer). A build that fails is
 recorded on the entry (status "error") and is never retried at the same
 generation; nothing builds it on the host instead. `register_table` /
 `drop_table` cascade through `on_table_registered` / `on_table_dropped`.
 
-The JAX package's metrics registry and events, the stage scheduler's
-periodic graph, admission and the breaker, `sys.cubes` and
-`/debug/cubes` are not ported yet (ROADMAP queue A items 12 and 14):
-the registry counts its rewrite outcomes and builds in `rewrites` and
-`builds`, and its maintainer is a daemon thread.
+The JAX package's metrics registry and events, `sys.cubes` and
+`/debug/cubes` come with ROADMAP queue A item 14: the registry counts
+its rewrite outcomes and builds in `rewrites` and `builds`.
 """
 
 from __future__ import annotations
@@ -159,10 +159,11 @@ class CubeRegistry:
         self.engine = engine
         self._cubes: dict[str, CubeEntry] = {}
         self._lock = threading.RLock()
-        # the refresh maintainer: a daemon thread that wakes every
-        # cube_refresh_interval_s, or on an ingest of a cube's base
-        self._thread = None
-        self._wake = threading.Event()
+        # the refresh maintainer: a background graph of the stage
+        # scheduler (executor.stages.register_periodic) that runs every
+        # cube_refresh_interval_s, or on an ingest of a cube's base —
+        # this is its PeriodicHandle
+        self._handle = None
         self._stopped = False
         # rewrite attempts by outcome (served / refused / stale /
         # no_cube / error) and builds by outcome (ok / refresh / error)
@@ -281,7 +282,9 @@ class CubeRegistry:
                         for e in self._cubes.values())
         if stale:
             self._ensure_maintainer()
-            self._wake.set()
+            h = self._handle
+            if h is not None:
+                h.wake()
 
     # -------------------------------------------------------- maintenance
 
@@ -327,48 +330,36 @@ class CubeRegistry:
         return results
 
     def _ensure_maintainer(self):
-        """Start the `cube-maintain` daemon thread (lazily — honors a
-        cube_auto_refresh flag flipped on at runtime)."""
+        """Register the `cube-maintain` background graph on the stage
+        scheduler (lazily — honors a cube_auto_refresh flag flipped on
+        at runtime; re-registers after Engine.close cancelled it)."""
         if not self.engine.config.cube_auto_refresh or self._stopped:
             return
         with self._lock:
-            t = self._thread
-            if t is not None and t.is_alive():
+            h = self._handle
+            if h is not None and not h.cancelled:
                 return
-            self._thread = threading.Thread(
-                target=self._maintain_loop, name="cube-maintain",
-                daemon=True)
-            self._thread.start()
-
-    def _maintain_loop(self):
-        while not self._stopped:
-            self._wake.wait(
-                max(0.01, float(self.engine.config.cube_refresh_interval_s)))
-            self._wake.clear()
-            if self._stopped:
-                return
-            try:
-                self._maintain_pass()
-            except Exception:  # noqa: BLE001 — retried next tick
-                pass
+            self._handle = self.engine.runner.stages.register_periodic(
+                "cube-maintain",
+                lambda: self.engine.config.cube_refresh_interval_s,
+                self._maintain_pass)
 
     def stop(self, join: bool = False):
-        """Stop the maintainer; `join=True` blocks until an in-progress
-        pass exits, so that shutdown leaves no work behind. The JAX
-        package's Engine.close calls it; the port's Engine.close comes
-        with ROADMAP queue A item 12."""
+        """Cancel the maintainer graph; `join=True` (Engine.close)
+        blocks until an in-progress pass exits, so that shutdown leaves
+        no work behind."""
         self._stopped = True
-        self._wake.set()
-        t = self._thread
-        if join and t is not None and t is not threading.current_thread():
-            t.join(10.0)
+        h = self._handle
+        if h is not None:
+            h.cancel(join_timeout=10.0 if join else None)
 
     def _maintain_pass(self):
-        """One maintainer tick: rebuild stale cubes one at a time, every
-        cube_refresh_interval_s (or on an ingest wake). Builds go
-        through compute_partials under the runner's dispatch_lock, so
-        they queue behind foreground queries; a failure means 'retry
-        next tick' (at a new generation), never a dead thread."""
+        """One background-graph tick: rebuild stale cubes one at a time,
+        on the scheduler's background pool every cube_refresh_interval_s
+        (or on an ingest wake). Builds go through compute_partials, i.e.
+        the same admission slot and breaker check as foreground queries:
+        an open breaker or a shed means 'retry next tick', never a dead
+        graph."""
         for e in self.stale_cubes():
             if self._stopped:
                 return

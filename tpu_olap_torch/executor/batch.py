@@ -36,11 +36,18 @@ launch cannot be timed per leg), `fused_batch` (legs in the multi-leg
 kernel), `host_copies` (the group's one copy, shared like
 scan_ms_shared) and route "batch".
 
-Not ported here, each with the ROADMAP item that brings it: admission,
-the guarded dispatch with its deadline and wedge reprobe, fault
-injection and the pipelined mode (item 12); mesh legs and the broker
-merge (item 13); spans, history records, SLO observations and events
-(item 14).
+Resilience, as in the JAX package: a batch submission holds ONE
+admission slot (`QueryRunner._execute_batch_boxed`; a shed raises
+QueryShed out of `sql_batch`), the shared pass runs through
+`QueryRunner._guarded_dispatch` (the breaker check, then the retry
+layer), and the "batch-leg" fault site fires in each leg's finalize: a
+leg that fails there is served alone by the single-query path while
+the other legs keep their shared answers.
+
+Not ported here, each with the ROADMAP item that brings it: the guarded
+dispatch's deadline and wedge reprobe and the pipelined mode (item
+12b); mesh legs and the broker merge (item 13); spans, history records,
+SLO observations and events (item 14).
 """
 
 from __future__ import annotations
@@ -54,6 +61,8 @@ from tpu_olap_torch.ir.query import (GroupByQuerySpec, TimeseriesQuerySpec,
                                      TopNQuerySpec)
 from tpu_olap_torch.kernels import fused_reduce, rowgen
 from tpu_olap_torch.kernels.groupby import group_reduce_batch
+from tpu_olap_torch.resilience.errors import InternalError
+from tpu_olap_torch.resilience.faults import maybe_inject
 
 AGG_QUERY_TYPES = (TimeseriesQuerySpec, GroupByQuerySpec, TopNQuerySpec)
 
@@ -235,6 +244,56 @@ def _run_fused(runner, table, group):
                      "batch_size": n_logical, "batch_legs": len(group)}
                     for _ in group]
 
+    def dispatch():
+        return _shared_pass(runner, table, plans, metrics_list)
+
+    # retry-based recovery as on the single-query path (leg 0's metrics
+    # carry any retry_errors), behind the breaker check
+    partials_list, shared, shared_ms, n_kernel = runner._guarded_dispatch(
+        dispatch, metrics_list[0], table.name)
+    # per-leg attribution by scanned-work weight (columns read x
+    # segments kept x aggregations): an estimate, one launch cannot be
+    # timed per leg
+    w = [max(1, (len(p.columns) + 1) * max(1, len(p.pruned_ids))
+             * (len(p.agg_plans) + 1)) for p in plans]
+    agg_ms = [shared_ms * wi / sum(w) for wi in w]
+
+    results = []
+    for leg_i, ((q, _, plan), m, partials, leg_ms) in enumerate(
+            zip(group, metrics_list, partials_list, agg_ms)):
+        t0 = time.perf_counter()
+        try:
+            # per-leg fault site: a leg that fails here is served alone
+            # by the single-query path, the others keep their answers
+            maybe_inject(runner.config, "batch-leg", leg_i)
+            specs = agg_specs_by_name(q.aggregations)
+            arrays = finalize_aggs(partials, plan.agg_plans, specs,
+                                   theta_raw_fields(q.post_aggregations))
+            eval_post_aggs(arrays, q.post_aggregations)
+            res = runner._assemble_agg(q, plan, arrays)
+        except Exception as e:  # noqa: BLE001 — the leg re-runs alone
+            res = runner._execute(q, table)
+            res.metrics["batch_leg_error"] = f"{type(e).__name__}: {e}"
+            results.append(res)
+            continue
+        m.update(scan_ms_shared=shared_ms, agg_ms=leg_ms,
+                 execute_ms=shared_ms, fused_batch=n_kernel,
+                 host_copies=shared["host_copies"],
+                 host_bytes=shared["host_bytes"])
+        m["assemble_ms"] = (time.perf_counter() - t0) * 1000
+        m["total_ms"] = (time.perf_counter() - t_start) * 1000
+        res.metrics = m
+        fp = runner._observe(m, q, table)
+        runner._store_full_cache(q, table, res, fp)
+        results.append(res)
+    return results
+
+
+def _shared_pass(runner, table, plans, metrics_list):
+    """The device half of a fused group: prepare every leg over the
+    union window, launch, and copy every leg's partials back at once.
+    Returns (per-leg partials, the copy's metrics, its wall in ms, the
+    legs in the multi-leg kernel)."""
     envs, seg_masks, consts = [], [], []
     valid = None
     # the union of the legs' working sets stays pinned in the ledger
@@ -293,6 +352,7 @@ def _run_fused(runner, table, group):
 
     # every leg's partials in ONE device-to-host copy
     shared = {"host_copies": 0}
+    runner._inject("host-transfer")
     flat = _fetch({f"{i}\0{n}": t for i, out in enumerate(outs)
                    for n, t in out.items()}, shared)
     partials_list = [{} for _ in plans]
@@ -300,33 +360,7 @@ def _run_fused(runner, table, group):
         i, n = name.split("\0", 1)
         partials_list[int(i)][n] = a
     shared_ms = (time.perf_counter() - t_fire) * 1000
-    # per-leg attribution by scanned-work weight (columns read x
-    # segments kept x aggregations): an estimate, one launch cannot be
-    # timed per leg
-    w = [max(1, (len(p.columns) + 1) * max(1, len(p.pruned_ids))
-             * (len(p.agg_plans) + 1)) for p in plans]
-    agg_ms = [shared_ms * wi / sum(w) for wi in w]
-
-    results = []
-    for (q, _, plan), m, partials, leg_ms in zip(group, metrics_list,
-                                                 partials_list, agg_ms):
-        t0 = time.perf_counter()
-        specs = agg_specs_by_name(q.aggregations)
-        arrays = finalize_aggs(partials, plan.agg_plans, specs,
-                               theta_raw_fields(q.post_aggregations))
-        eval_post_aggs(arrays, q.post_aggregations)
-        res = runner._assemble_agg(q, plan, arrays)
-        m.update(scan_ms_shared=shared_ms, agg_ms=leg_ms,
-                 execute_ms=shared_ms, fused_batch=len(kernel_legs),
-                 host_copies=shared["host_copies"],
-                 host_bytes=shared["host_bytes"])
-        m["assemble_ms"] = (time.perf_counter() - t0) * 1000
-        m["total_ms"] = (time.perf_counter() - t_start) * 1000
-        res.metrics = m
-        fp = runner._observe(m, q, table)
-        runner._store_full_cache(q, table, res, fp)
-        results.append(res)
-    return results
+    return partials_list, shared, shared_ms, len(kernel_legs)
 
 
 def _union_window(plans, n_segments):
@@ -432,7 +466,7 @@ class Coalescer:
         finally:
             for it in batch:
                 if it.result is None and it.error is None:
-                    it.error = RuntimeError(
+                    it.error = InternalError(
                         "batch leader exited without a result")
                 it.event.set()
         if me.error is not None:

@@ -155,6 +155,78 @@ class EngineConfig:
     # the JAX package's; PERF.md has the crossover measured on the card.
     cube_serve_min_reduction: float = 16.0
 
+    # --- real-time ingest (segments/delta.py, segments/wal.py) ---
+    # Engine.append lands rows in a mutable in-memory delta scope,
+    # queryable at once alongside sealed segments; a WAL makes
+    # acknowledged appends crash-durable and a background compactor
+    # seals deltas into time-partitioned segments. ingest_wal_dir:
+    # directory of the per-table write-ahead logs; None disables
+    # durability (appends stay queryable, but do not survive a crash).
+    ingest_wal_dir: str | None = None
+    # fsync policy: "always" (fsync before acknowledging), "interval"
+    # (a background graph fsyncs every ingest_wal_flush_interval_s;
+    # process crashes lose nothing, power loss may lose the last
+    # interval), "never" (tests and benchmarks)
+    ingest_wal_fsync: str = "always"
+    ingest_wal_flush_interval_s: float = 0.05
+    # replay an existing WAL when a table is first registered in this
+    # process (crash recovery); re-registering a live table resets its
+    # log instead (the appends belonged to the old data)
+    ingest_wal_replay: bool = True
+    # backpressure bound: most delta rows per table before appends shed
+    # with IngestBackpressure (retry after ingest_retry_after_s until a
+    # compaction has been observed); 0 = unbounded
+    ingest_max_delta_rows: int = 1 << 20
+    ingest_retry_after_s: float = 1.0
+    # background compactor: seal deltas of at least ingest_compact_rows
+    # rows every ingest_compact_interval_s (and on an append's wake).
+    # False = compact only through Engine.compact_now.
+    ingest_auto_compact: bool = True
+    ingest_compact_rows: int = 1 << 16
+    ingest_compact_interval_s: float = 2.0
+    # durable sealed-segment store (segments/store.py): a checkpoint
+    # spills the sealed scope as checksummed chunk files under an
+    # atomically swapped manifest, so that recovery replays only the
+    # WAL tail past the checkpoint's watermark. None disables it
+    # (recovery replays the whole WAL).
+    ingest_store_dir: str | None = None
+    # manifests kept per table (>= 2): the WAL truncates only through
+    # the oldest kept manifest's watermark, so a corrupt newest
+    # checkpoint falls back to the previous one with its WAL tail
+    ingest_store_keep_manifests: int = 2
+    # checkpoint after every compaction; False = only through
+    # Engine.checkpoint_now / CHECKPOINT DRUID TABLE
+    ingest_store_checkpoint_on_compact: bool = True
+
+    # --- resilience (tpu_olap_torch.resilience) ---
+    # a failed device dispatch is retried this many times, the table's
+    # resident state purged between attempts
+    dispatch_retries: int = 1
+    # after the retries, serve the statement from the pandas fallback
+    # interpreter (recorded in the metrics: path, retries, retry_errors)
+    # instead of raising; False = raise
+    fallback_on_device_failure: bool = True
+    # fault hook: callable(stage: str, attempt: int) -> None that may
+    # raise (None in production). A plain callable fires only at the
+    # "dispatch" site; one with a `stages` attribute (None = every site)
+    # fires at the sites it names (resilience.faults).
+    fault_injector: object = None
+    # admission control: at most max_inflight_dispatches hold slots, at
+    # most admission_queue_limit wait for one, the next caller is shed
+    # with QueryShed; <= 0 disables admission
+    max_inflight_dispatches: int = 8
+    admission_queue_limit: int = 64
+    # circuit breaker: this many consecutive terminal device failures
+    # open it; while open, fallback-capable statements are served by the
+    # interpreter (path "fallback_breaker") and the rest refuse with
+    # BreakerOpen. A healer thread probes the device every
+    # breaker_open_cooldown_s and closes it on success. <= 0 disables it.
+    breaker_failure_threshold: int = 5
+    breaker_open_cooldown_s: float = 5.0
+    # The JAX package's query_deadline_s and pipeline_depth come with
+    # ROADMAP queue A item 12b and degrade_shards_on_retry with item 13;
+    # until then passing one raises TypeError.
+
     # workload profiler (obs.workload): every completed statement folds
     # into bounded per-template rolling stats, the demand signal of the
     # cube advisor. workload_max_templates bounds distinct templates

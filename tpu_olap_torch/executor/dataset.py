@@ -8,9 +8,17 @@ reused across queries. Interval pruning is applied as a per-segment mask
 Every table's stacks are accounted in one `HbmLedger` that the runner
 owns: past `EngineConfig.hbm_budget_bytes` the least-recently-used
 unpinned stacks evict (an evicted stack rebuilds on its next use). One
-device, no mesh and no incremental rebase: those belong to the JAX
-package's multi-chip and real-time ingest paths, which are not ported
-yet.
+device and no mesh: the JAX package's multi-chip placement comes with
+ROADMAP queue A item 13.
+
+Snapshot swaps (real-time appends, incremental compaction) hand the
+superseded dataset in as `prev`, and each resident stack REBASES on the
+device instead of re-uploading: the rows of segments whose uid the old
+snapshot shares are copied device to device from the old stack
+(index_select / index_copy_), and only the changed segments' rows
+upload (the tail block an append rewrote, and any new blocks). A stack
+whose dtype changed (a narrowed LONG column widened, a code column
+promoted) re-stacks whole. The rebase runs on CPU tensors the same way.
 """
 
 from __future__ import annotations
@@ -149,10 +157,25 @@ class HbmLedger:
 
 class DeviceDataset:
     """Lazy per-column stacks for one table on one device, accounted in
-    the runner's HbmLedger (None: unaccounted)."""
+    the runner's HbmLedger (None: unaccounted).
+
+    `prev`, the superseded snapshot's dataset, seeds a rebase: its
+    resident column, null and validity stacks are kept as rebase
+    sources, and the first use of each stack here builds it from its
+    source (`_rebase_stack`). The sources drop at the first dispatch's
+    validity mask, the last stack its working set builds (as in the JAX
+    package): the columns that dispatch reads rebase, and a column first
+    read by a later query re-stacks whole. The runner evicts `prev` once
+    this dataset holds its sources, so that until they drop, the sources
+    are out of the ledger.
+    Derived streams (dim ids, bucket ids, filter translations) never
+    carry over: their rows change with the tail block. Rebases are
+    counted in `rebased_cols` and `rebase_rows_uploaded` (rows uploaded
+    per rebased stack, summed); `h2d_bytes` counts every byte put on the
+    device (stacks, rebase uploads, segment masks)."""
 
     def __init__(self, table: TableSegments, device: torch.device,
-                 ledger: HbmLedger | None = None):
+                 ledger: HbmLedger | None = None, prev=None):
         self.table = table
         self.device = torch.device(device)
         self.ledger = ledger
@@ -161,9 +184,70 @@ class DeviceDataset:
         self._derived: dict[str, torch.Tensor] = {}
         self._valid = None
         self.shape = (len(table.segments), table.block_rows)
+        self._rebase = None
+        self.rebased_cols = 0
+        self.rebase_rows_uploaded = 0
+        self.h2d_bytes = 0      # host-to-device bytes this dataset put
+        if (prev is not None and prev.table is not table
+                and prev.device == self.device
+                and prev.table.block_rows == table.block_rows):
+            old_segs = prev.table.segments
+            # uid equality, not object identity: incremental compaction
+            # re-wraps untouched partitions in fresh Segment shells
+            # around the same column arrays, carrying the uid over
+            changed = [i for i, s in enumerate(table.segments)
+                       if i >= len(old_segs) or s.uid != old_segs[i].uid]
+            # only worth the device copy when most rows carry over
+            if changed and len(changed) * 2 <= len(table.segments):
+                self._rebase = {"changed": changed, "old_n": len(old_segs),
+                                "cols": dict(prev._cols),
+                                "nulls": dict(prev._nulls),
+                                "valid": prev._valid}
+
+    def _rebase_stack(self, old: torch.Tensor | None, per_segment,
+                      dtype: torch.dtype):
+        """A new stack from the old snapshot's resident one: unchanged
+        segments' rows copied on the device, changed segments' rows
+        uploaded. None when there is no source or its dtype differs
+        from the new stack's (the caller re-stacks whole)."""
+        if old is None or old.dtype != dtype:
+            return None
+        rb = self._rebase
+        changed = rb["changed"]
+        cset = set(changed)
+        n_new = len(self.table.segments)
+        keep = [i for i in range(min(n_new, rb["old_n"])) if i not in cset]
+        out = torch.empty((n_new,) + tuple(old.shape[1:]), dtype=dtype,
+                          device=self.device)
+        if keep:
+            idx = torch.tensor(keep, dtype=torch.int64, device=self.device)
+            out.index_copy_(0, idx, old.index_select(0, idx))
+        if changed:
+            fresh = np.stack([per_segment(self.table.segments[i])
+                              for i in changed])
+            idx = torch.tensor(changed, dtype=torch.int64, device=self.device)
+            out.index_copy_(0, idx, self._put(fresh).to(dtype))
+        self.rebased_cols += 1
+        self.rebase_rows_uploaded += len(changed) * self.table.block_rows
+        return out
+
+    def _build(self, kind: str, name: str, per_segment, dtype: torch.dtype,
+               np_dtype=None) -> torch.Tensor:
+        """One stack: rebased from its source when there is one, else
+        stacked and uploaded whole."""
+        rb, old = self._rebase, None
+        if rb is not None:
+            old = rb["valid"] if kind == "valid" \
+                else rb[kind + "s"].pop(name, None)
+        t = self._rebase_stack(old, per_segment, dtype)
+        if t is None:
+            t = self._put(self._stack(per_segment, np_dtype))
+        return t
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        arr = np.ascontiguousarray(arr)
+        self.h2d_bytes += arr.nbytes
+        return torch.from_numpy(arr).to(self.device)
 
     def _stack(self, per_segment, dtype=None) -> np.ndarray:
         rows = [per_segment(s) for s in self.table.segments]
@@ -196,7 +280,8 @@ class DeviceDataset:
             dt = narrow_dtype(self.table, name)
             get = (lambda s: s.columns[name]) if dt is None else \
                 (lambda s: s.columns[name].astype(dt, copy=False))
-            t = self._cols[name] = self._put(self._stack(get, dt))
+            t = self._cols[name] = self._build(
+                "col", name, get, resident_dtype(self.table, name), dt)
             self._account("col", name, t, self._cols, pinned)
         else:
             self._touch("col", name)
@@ -208,8 +293,9 @@ class DeviceDataset:
             t = None
             if has_nulls(self.table, name):
                 zero = np.zeros(self.table.block_rows, bool)
-                t = self._put(self._stack(
-                    lambda s: s.null_masks.get(name, zero)))
+                t = self._build("null", name,
+                                lambda s: s.null_masks.get(name, zero),
+                                torch.bool)
             self._nulls[name] = t
             if t is not None:
                 self._account("null", name, t, self._nulls, pinned)
@@ -241,11 +327,13 @@ class DeviceDataset:
         t = self._valid
         if t is None:
             r = np.arange(self.table.block_rows)
-            t = self._valid = self._put(self._stack(
-                lambda s: r < s.meta.n_valid, bool))
+            t = self._valid = self._build(
+                "valid", "", lambda s: r < s.meta.n_valid, torch.bool, bool)
             self._account("valid", "", t, None, pinned)
         else:
             self._touch("valid", "")
+        # the last stack of a dispatch's working set: the rebase ends
+        self._rebase = None
         return t
 
     def segment_mask(self, kept_ids) -> torch.Tensor:
@@ -293,5 +381,6 @@ class DeviceDataset:
         self._nulls.clear()
         self._derived.clear()
         self._valid = None
+        self._rebase = None
         if self.ledger is not None:
             self.ledger.remove_table(self.table.name)

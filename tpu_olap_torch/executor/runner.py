@@ -33,8 +33,25 @@ and computes the rest in one launch of the segment-extended fused reduce
 (`_run_agg_segcached`). Every table's resident stacks are accounted in
 one HbmLedger under `hbm_budget_bytes`. `compute_partials` is the cube
 materializer's entry point, and `workload` profiles every completed
-statement for the cube advisor. The stage graph, admission and the
-breaker (item 12) and the mesh (item 13) are not ported yet.
+statement for the cube advisor.
+
+Resilience, as in the JAX package: `execute` checks the full-result
+cache, then the circuit breaker, the coalescer, an admission slot and
+`dispatch_lock`, in that order. Every device dispatch runs through
+`_dispatch`: the "dispatch" fault site, up to `dispatch_retries + 1`
+attempts with the table's resident state purged between them, the
+retried errors in the metrics (`retries`, `retry_errors`), and one
+breaker failure when the attempts run out. The last error then
+propagates (the engine serves the statement from the fallback
+interpreter when `fallback_on_device_failure` is set). The "host-transfer"
+site fires before each device-to-host copy and rides the same
+accounting. The breaker's healer probes the device on its own thread
+(`_probe_device`: a small reduction and a stream synchronize on the
+card) and on success evicts the resident datasets, keeping the compiled
+kernels. `stages`, the StageScheduler, runs the background graphs
+(compactor, WAL flush, cube maintainer). The per-query deadline with
+its wedge recovery and the pipelined two-stage mode come with ROADMAP
+queue A item 12b, the mesh with item 13.
 """
 
 from __future__ import annotations
@@ -53,6 +70,7 @@ from tpu_olap_torch.executor.lowering import PhysicalPlan, lower
 from tpu_olap_torch.executor.packing import (build_packer, densify,
                                              make_layout, unpack)
 from tpu_olap_torch.executor.resultcache import ResultCache
+from tpu_olap_torch.executor.stages import StageScheduler
 from tpu_olap_torch.executor.results import (agg_specs_by_name, eval_having,
                                              eval_post_aggs, finalize_aggs,
                                              iso, render_value,
@@ -72,6 +90,10 @@ from tpu_olap_torch.ir.query import (GroupByQuerySpec, ScanQuerySpec,
                                      TimeseriesQuerySpec, TopNQuerySpec)
 from tpu_olap_torch.obs.workload import (WorkloadProfiler, fingerprint_ir,
                                          in_introspection)
+from tpu_olap_torch.resilience.admission import AdmissionController
+from tpu_olap_torch.resilience.breaker import CircuitBreaker
+from tpu_olap_torch.resilience.errors import QueryError
+from tpu_olap_torch.resilience.faults import maybe_inject
 from tpu_olap_torch.segments.segment import TIME_COLUMN
 
 
@@ -144,8 +166,30 @@ class QueryRunner:
             max_templates=self.config.workload_max_templates,
             latency_window=self.config.workload_latency_window,
             enabled=self.config.workload_profile_enabled)
+        # bounded admission in front of dispatch_lock, and the device
+        # circuit breaker whose healer probes through _healer_probe
+        self.admission = AdmissionController(
+            self.config.max_inflight_dispatches,
+            self.config.admission_queue_limit)
+        self.breaker = CircuitBreaker(
+            self.config.breaker_failure_threshold,
+            self.config.breaker_open_cooldown_s,
+            probe=self._healer_probe)
+        self._attempt_local = threading.local()  # the dispatch attempt
+        # the stage scheduler: the background periodic graphs (compactor,
+        # WAL flush, cube maintainer) run on its background pool
+        self.stages = StageScheduler(self.config, admission=self.admission,
+                                     inject=self._inject)
         if (self.config.batch_window_ms or 0) > 0:
             self.set_batch_window(self.config.batch_window_ms)
+
+    def _inject(self, stage: str):
+        """Fire the configured fault injector at `stage` with the current
+        dispatch attempt (set by _dispatch), so that a fault at e.g.
+        host-transfer rides the same retry accounting as a dispatch
+        fault."""
+        maybe_inject(self.config, stage,
+                     getattr(self._attempt_local, "value", 0))
 
     @property
     def last_metrics(self) -> dict:
@@ -179,20 +223,28 @@ class QueryRunner:
 
     def _execute_batch_boxed(self, queries, table) -> list:
         from tpu_olap_torch.executor.batch import run_batch
-        with self.dispatch_lock:
-            return run_batch(self, queries, table)
+        # one admission slot per batch submission: the shared pass is one
+        # device occupancy however many statements ride it
+        with self.admission.slot(None):
+            with self.dispatch_lock:
+                return run_batch(self, queries, table)
 
     def _next_batch_id(self) -> int:
         self._batch_seq += 1
         return self._batch_seq
 
     def execute(self, query, table) -> QueryResult:
-        # the full-result cache first: a hit takes no lock, launches
-        # nothing and copies nothing
+        # the full-result cache first: a hit takes no slot and no lock,
+        # launches nothing and copies nothing, and keeps serving through
+        # an open breaker
         res = self._serve_full_cache(query, table)
         if res is not None:
             self.last_metrics = res.metrics
             return res
+        # the breaker next: while open, fail in microseconds (the engine
+        # serves fallback-capable statements from the interpreter)
+        # instead of queueing work onto a sick device
+        self.breaker.check()
         if self._coalescer is not None and not in_nested_execution():
             from tpu_olap_torch.executor.batch import AGG_QUERY_TYPES
             if isinstance(query, AGG_QUERY_TYPES):
@@ -201,8 +253,118 @@ class QueryRunner:
                 res = self._coalescer.submit(query, table)
                 self.last_metrics = res.metrics
                 return res
+        with self.admission.slot(None):
+            with self.dispatch_lock:
+                self.breaker.check()
+                return self._execute(query, table)
+
+    def _dispatch(self, call, metrics: dict, table_name: str):
+        """Run one device dispatch with retry-based recovery: on failure,
+        purge the table's resident state (its stacks could be poisoned
+        by a device reset; other tables' stay warm) and re-run, up to
+        `dispatch_retries + 1` attempts. Every retried error is kept in
+        metrics["retry_errors"]; exhausting the attempts counts one
+        breaker failure and re-raises. Structural refusals
+        (UnsupportedAggregation) and taxonomy errors (QueryError) pass
+        through untouched: retrying cannot change them."""
+        attempts = max(1, self.config.dispatch_retries + 1)
+        for attempt in range(attempts):
+            try:
+                self._attempt_local.value = attempt
+                maybe_inject(self.config, "dispatch", attempt)
+                out = call()
+                # a success resets the breaker's consecutive failures
+                self.breaker.record_success()
+                return out
+            except (UnsupportedAggregation, QueryError):
+                raise
+            except Exception as e:
+                metrics.setdefault("retry_errors", []).append(
+                    f"{type(e).__name__}: {e}")
+                if attempt + 1 >= attempts:
+                    # terminal: one breaker failure (the attempts the
+                    # retry layer absorbed are not breaker events)
+                    self.breaker.record_failure()
+                    raise
+                metrics["retries"] = attempt + 1
+                with self.dispatch_lock:
+                    self.clear_cache(table_name)
+            finally:
+                self._attempt_local.value = 0
+
+    def _guarded_dispatch(self, call, metrics: dict, table_name: str):
+        """_dispatch behind a breaker check: the batch executor's shared
+        pass. The JAX package also runs it under the per-query deadline
+        with its wedge reprobe; that branch comes with ROADMAP queue A
+        item 12b."""
+        self.breaker.check()
+        return self._dispatch(call, metrics, table_name)
+
+    def _copy(self, buf: torch.Tensor, metrics: dict) -> np.ndarray:
+        """to_host behind the "host-transfer" fault site."""
+        self._inject("host-transfer")
+        return to_host(buf, metrics)
+
+    def _fetch(self, out: dict, metrics: dict) -> dict:
+        """_fetch behind the "host-transfer" fault site."""
+        self._inject("host-transfer")
+        return _fetch(out, metrics)
+
+    # ------------------------------------------------ device health
+
+    def _probe_device(self, timeout: float) -> bool:
+        """A small reduction on the runner's device, on a watchdog
+        thread; True iff it returns the right sum within `timeout`. On the
+        card the thread synchronizes the current CUDA stream, so a hung
+        or failed device shows. The "reprobe" fault site lives here, so
+        a failing probe is testable without a sick device."""
+        ok = threading.Event()
+
+        def work():
+            try:
+                maybe_inject(self.config, "reprobe", 0)
+                x = torch.arange(8, dtype=torch.int32,
+                                 device=self.device).sum()
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                if int(x) == 28:
+                    ok.set()
+            except Exception:  # noqa: BLE001 — a failed probe is data
+                pass
+
+        t = threading.Thread(target=work, daemon=True,
+                             name="tpu-olap-probe")
+        t.start()
+        t.join(timeout)
+        return ok.is_set()
+
+    def _recover_after_probe(self):
+        """The probe succeeded: evict the resident datasets (stacks a
+        device reset would poison) and the plans' device constants and
+        segment masks, but keep the compiled kernels (the plans and the
+        process's cubin cache): recompiling every template would stall
+        the first queries after recovery. Holds dispatch_lock (the
+        serialized form; the pipelined mode's bounded acquire comes
+        with item 12b). Slots stranded in the admission pipeline and
+        the stage pools are reclaimed too."""
         with self.dispatch_lock:
-            return self._execute(query, table)
+            for ds in list(self._datasets.values()):
+                ds.evict()
+            self._datasets.clear()
+            for _, plan in list(self._plan_cache.values()):
+                plan.__dict__.pop("_device_consts", None)
+                plan.__dict__.pop("_device_seg_mask", None)
+        self.admission.reset_pipeline()
+        self.stages.reclaim_stranded()
+
+    def _healer_probe(self) -> bool:
+        """The breaker healer's half-open probe: the same round trip, then
+        the recovery purge, so that the first query after recovery starts
+        from fresh stacks."""
+        if not self._probe_device(10.0):
+            return False
+        self._recover_after_probe()
+        return True
 
     def _execute(self, query, table) -> QueryResult:
         t0 = time.perf_counter()
@@ -321,9 +483,15 @@ class QueryRunner:
     def _dataset(self, table) -> DeviceDataset:
         ds = self._datasets.get(table.name)
         if ds is None or ds.table is not table:
-            if ds is not None:
-                ds.evict()  # a superseded snapshot leaves the ledger
-            ds = DeviceDataset(table, self.device, self._ledger)
+            prev = ds
+            # the superseded snapshot rides in as `prev`: its resident
+            # stacks rebase on the device (only the changed segments'
+            # rows upload). It is evicted after the new dataset has
+            # taken its stacks; in-flight queries that hold its tensors
+            # keep them alive by reference.
+            ds = DeviceDataset(table, self.device, self._ledger, prev=prev)
+            if prev is not None:
+                prev.evict()
             self._datasets[table.name] = ds
         return ds
 
@@ -474,7 +642,7 @@ class QueryRunner:
         partial table with one device-to-host copy."""
         args = self._dispatch_args(plan, metrics)
         t0 = time.perf_counter()
-        out = _fetch(plan.kernel(*args), metrics)
+        out = self._fetch(plan.kernel(*args), metrics)
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
         return out
 
@@ -503,7 +671,7 @@ class QueryRunner:
         while True:
             layout = make_layout(plan, self.config, cap)
             buf = build_packer(plan.kernel, plan, layout)(*args)
-            count, idx, compact = unpack(to_host(buf, metrics), layout)
+            count, idx, compact = unpack(self._copy(buf, metrics), layout)
             if count <= layout.cap:
                 break
             if count > cap_limit:
@@ -529,7 +697,7 @@ class QueryRunner:
         t0 = time.perf_counter()
         reruns = []
         while True:
-            out = _fetch(plan.make_sparse_kernel(cap)(*args), metrics)
+            out = self._fetch(plan.make_sparse_kernel(cap)(*args), metrics)
             count = int(out["_count"])
             if count <= cap:
                 break
@@ -561,7 +729,8 @@ class QueryRunner:
 
         if plan.sparse:
             metrics["route"] = "sparse"
-            out = self._run_sparse(plan, metrics)
+            out = self._dispatch(lambda: self._run_sparse(plan, metrics),
+                                 metrics, table.name)
             t0 = time.perf_counter()
             arrays = finalize_aggs(out, plan.agg_plans, specs, keep_raw)
             eval_post_aggs(arrays, query.post_aggregations)
@@ -585,7 +754,8 @@ class QueryRunner:
                 metrics["assemble_ms"] = (time.perf_counter() - t0) * 1000
                 return res
 
-        packed = None if keep_raw else self._run_packed(plan, metrics)
+        packed = None if keep_raw else self._dispatch(
+            lambda: self._run_packed(plan, metrics), metrics, table.name)
         if packed is not None:
             metrics["route"] = "packed"
             idx, compact, layout = packed
@@ -598,7 +768,9 @@ class QueryRunner:
         else:
             # theta set ops, or a packed overflow past result_group_cap
             metrics["route"] = "unpacked"
-            partials = self._run_partials(plan, metrics)
+            partials = self._dispatch(
+                lambda: self._run_partials(plan, metrics), metrics,
+                table.name)
             t0 = time.perf_counter()
             arrays = finalize_aggs(partials, plan.agg_plans, specs,
                                    keep_raw)
@@ -649,7 +821,9 @@ class QueryRunner:
         to_compute = sorted([s for s in covered if s not in hits]
                             + always_compute)
         if to_compute:
-            fresh = self._run_seg_partials(plan, metrics, to_compute)
+            fresh = self._dispatch(
+                lambda: self._run_seg_partials(plan, metrics, to_compute),
+                metrics, table.name)
             storable = set(covered)
             for sid in to_compute:
                 if sid in storable:
@@ -718,7 +892,7 @@ class QueryRunner:
             key2 = seg_local * K + key.to(torch.int32)
             out = group_reduce(key2, mask, fenv, plan.agg_plans, W * K,
                                consts)
-        host = _fetch(out, metrics)
+        host = self._fetch(out, metrics)
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
         shaped = {n: torch.from_numpy(a).reshape((W, K) + a.shape[1:])
                   for n, a in host.items()}
@@ -732,10 +906,11 @@ class QueryRunner:
         group ids [G] int64, {name: [G, ...] compact partial arrays},
         metrics). Rides the cached lowering and the dense partials route
         (the fused reduce on the card, one copy) or the sparse route,
-        under dispatch_lock, so that a background cube build queues
-        behind foreground traffic. Admission and the breaker come with
-        ROADMAP queue A item 12."""
-        with self.dispatch_lock:
+        under an admission slot, the breaker check, dispatch_lock and the
+        retry layer, so that a background cube build queues behind (and
+        sheds with) foreground traffic."""
+        with self.admission.slot(None), self.dispatch_lock:
+            self.breaker.check()
             metrics = self.last_metrics = {"host_copies": 0}
             plan = self._lower_cached(query, table)
             if plan.kind != "agg":
@@ -744,7 +919,9 @@ class QueryRunner:
             metrics["fused"] = plan.fused_reason is None
             if plan.sparse:
                 metrics["route"] = "sparse"
-                out = self._run_sparse(plan, metrics)
+                out = self._dispatch(
+                    lambda: self._run_sparse(plan, metrics), metrics,
+                    table.name)
                 pm = out["_keys"] != SENTINEL
                 present = out["_keys"][pm].astype(np.int64)
                 compact = {k: np.asarray(v)[pm] for k, v in out.items()
@@ -752,7 +929,9 @@ class QueryRunner:
                            or k.startswith("_nn_")}
             else:
                 metrics["route"] = "unpacked"
-                partials = self._run_partials(plan, metrics)
+                partials = self._dispatch(
+                    lambda: self._run_partials(plan, metrics), metrics,
+                    table.name)
                 present = np.nonzero(partials["_rows"] > 0)[0] \
                     .astype(np.int64)
                 compact = {k: np.asarray(v)[present]
@@ -915,7 +1094,9 @@ class QueryRunner:
         plan = self._lower_cached(query, table)
         metrics["lower_ms"] = (time.perf_counter() - t0) * 1000
         t0 = time.perf_counter()
-        mask = to_host(self._run_mask(plan, metrics).reshape(-1), metrics)
+        mask = self._dispatch(
+            lambda: self._copy(self._run_mask(plan, metrics).reshape(-1),
+                               metrics), metrics, table.name)
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
         mask = _embed_windowed_mask(
             mask, self._segment_window(plan, len(table.segments)),
@@ -977,15 +1158,18 @@ class QueryRunner:
             plan = self._lower_cached(mask_query, table)
             metrics["lower_ms"] = (time.perf_counter() - t0) * 1000
             t0 = time.perf_counter()
-            mask = self._run_mask(plan, metrics).reshape(-1)
-            ds = self._dataset(table)
             win = self._segment_window(plan, len(table.segments))
             sl = slice(None) if win is None else slice(win[0],
                                                        win[0] + win[1])
             cards = [table.dictionaries[d].cardinality for d in coded]
-            packed = to_host(search_counts(
-                mask, [ds.col(d)[sl].reshape(-1) for d in coded], cards),
-                metrics)
+
+            def counts():
+                mask = self._run_mask(plan, metrics).reshape(-1)
+                ds = self._dataset(table)
+                return self._copy(search_counts(
+                    mask, [ds.col(d)[sl].reshape(-1) for d in coded],
+                    cards), metrics)
+            packed = self._dispatch(counts, metrics, table.name)
             metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
             off = 0
             for dim, card in zip(coded, cards):

@@ -32,10 +32,13 @@ is counted (`CubeRegistry.rewrites`) and a serve's metrics carry
 The fold is host work, as in the JAX package: the port's own
 compile_filter, DimPlan.ids, BucketPlan.ids and build_group_key run over
 CPU tensors, and the merge in numpy. A serve launches nothing and copies
-nothing. The JAX package's spans (obs.trace) come with ROADMAP queue A
-item 14; its delta fold (rows appended since the cube's sealed set,
-through the per-segment pass) comes with real-time ingest, item 12 —
-until then a table has no delta segments.
+nothing for the sealed scope. Rows appended since the cube's sealed set
+(the delta segments the query's pruning keeps) fold through the base
+path: one launch of the segment-extended fused reduce over just those
+segments (QueryRunner._run_seg_partials, the pass tier 1 trusts), under
+its own admission slot, the breaker check and the retry layer, one copy
+back, merged into the cube's fold before finalize. The JAX package's
+spans (obs.trace) come with ROADMAP queue A item 14.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from tpu_olap_torch.cubes.spec import agg_signature, period_contains
 from tpu_olap_torch.ir.granularity import AllGranularity, PeriodGranularity
 from tpu_olap_torch.ir.query import (GroupByQuerySpec, TimeseriesQuerySpec,
                                TopNQuerySpec)
+from tpu_olap_torch.executor.runner import _next_pow2
 from tpu_olap_torch.kernels.groupby import (_ident, build_group_key,
                                             partials_radix, torch_dtype)
 from tpu_olap_torch.kernels.hll import NUM_REGISTERS
@@ -317,6 +321,61 @@ def _fold_partials(query, phys, data, env, keep, fmask):
     return out, len(rows_idx)
 
 
+def _delta_fold_reason(phys, delta_ids, config) -> str | None:
+    """None when the delta remainder can fold through the base path
+    (QueryRunner._run_seg_partials), else why the cube must refuse —
+    the same shape guards the tier-1 segment cache applies."""
+    if phys.sparse or phys.kernel is None:
+        return "delta fold needs a dense plan"
+    radix = partials_radix(phys.agg_plans)
+    # the window QueryRunner._run_seg_partials launches over
+    W = min(_next_pow2(max(delta_ids) - min(delta_ids) + 1),
+            len(phys.table.segments))
+    if W * phys.total_groups * radix \
+            > config.segment_cache_state_budget:
+        return (f"delta fold state {W}x{phys.total_groups}x{radix} "
+                "exceeds segment_cache_state_budget")
+    if W * phys.total_groups >= (1 << 31):
+        return "delta fold key space overflows int32"
+    return None
+
+
+def _merge_delta_partials(runner, phys, partials, delta_ids, table_name):
+    """Compute the delta segments' partials on the device (one pass,
+    per-segment keyed: QueryRunner._run_seg_partials, the machinery the
+    tier-1 cache already trusts) and merge them into the cube's
+    sealed-scope fold, as CPU tensors. Runs under its own admission slot
+    and the breaker check: the cube serve never entered
+    QueryRunner.execute, and background-vs-foreground fairness must hold
+    for the delta dispatch too. Returns (merged partials, delta rows
+    scanned, the dispatch's metrics)."""
+    import functools
+
+    from tpu_olap_torch.kernels.groupby import merge_partials
+
+    dmet: dict = {"host_copies": 0}
+    with runner.admission.slot(None), runner.dispatch_lock:
+        runner.breaker.check()
+        fresh = runner._dispatch(
+            lambda: runner._run_seg_partials(phys, dmet, sorted(delta_ids)),
+            dmet, table_name)
+    dparts = functools.reduce(
+        lambda a, b: merge_partials(a, b, phys.agg_plans), fresh.values())
+    cube = {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in partials.items()}
+    for p in phys.agg_plans:
+        nn = f"_nn_{p.name}"
+        if nn in cube and nn not in dparts:
+            # the fused reduce keeps no non-null count of a SUM (the base
+            # path's answer has none either)
+            cube.pop(nn)
+        elif nn in dparts and nn not in cube:
+            # the cube stored no null mask: every kept row is non-null
+            cube[nn] = cube["_rows"].to(dparts[nn].dtype)
+    return merge_partials(cube, dparts, phys.agg_plans), \
+        int(dmet.get("rows_scanned") or 0), dmet
+
+
 def try_serve_cube(engine, plan_result):
     """Serve `plan_result.query` from the smallest covering cube, or
     return None (the caller proceeds to the base-table device path).
@@ -384,23 +443,39 @@ def try_serve_cube(engine, plan_result):
                               f">={min_red:g}x reduction of the "
                               f"{base_rows}-row base scan")
                     continue
-            if any(not table.segment_sealed(sid)
-                   for sid in phys.pruned_ids):
-                reason = "delta segments (the delta fold comes with " \
-                    "real-time ingest)"
-                continue
+            # delta remainder: rows appended since the sealed set the
+            # cube covers fold through the BASE path — exact per-segment
+            # partials in this plan's own layout (interval and WHERE
+            # handled by the kernel, as tier 1 does for straddlers),
+            # merged with the cube's sealed-scope fold before finalize.
+            # Zero stale serves by construction: sealed rows come from
+            # the cube, delta rows from the live snapshot, and the
+            # scopes are disjoint.
+            delta_ids = [sid for sid in phys.pruned_ids
+                         if not table.segment_sealed(sid)]
+            if delta_ids:
+                reason = _delta_fold_reason(phys, delta_ids,
+                                            engine.config)
+                if reason is not None:
+                    continue
             env = _dim_env(phys, data, keep)
             fmask = _filter_mask(query, phys, env, kept_n)
             partials, scanned = _fold_partials(query, phys, data, env,
                                                keep, fmask)
+            dmet: dict = {}
+            if delta_ids:
+                partials, delta_scanned, dmet = _merge_delta_partials(
+                    runner, phys, partials, delta_ids, entry.name)
+                scanned += delta_scanned
             res = _finish(runner, query, phys, partials)
             registry.note_serve(cube)
             registry.count_request("served")
-            m = {"route": "cube", "host_copies": 0,
+            m = {"route": "cube", "host_copies": dmet.get("host_copies", 0),
                  "cube": cube.spec.name,
                  "cube_rows": data.n_rows,
                  "rows_scanned": int(scanned),
-                 "segments_scanned": 0,
+                 "delta_segments": len(delta_ids),
+                 "segments_scanned": len(delta_ids),
                  "segments_total": len(table.segments),
                  "cache_hit": False,
                  "rows_returned": len(res.rows),

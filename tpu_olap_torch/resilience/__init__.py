@@ -1,4 +1,38 @@
-"""Error taxonomy of the query path. `QueryError` (the base the fallback
-interpreter's `FallbackError` needs) and `UserError` (the cube DDL's
-refusals) are ported; admission, the breaker and the other resilience
-types wait for ROADMAP queue A item 12."""
+"""Resilience layer: structured errors, admission control, the circuit
+breaker and generalized fault injection, as in the JAX package.
+
+- errors:    the QueryError taxonomy (code / retriable / http_status):
+             QueryShed, BreakerOpen, IngestBackpressure, DeviceFailure,
+             InternalError and UserError
+- admission: the bounded device-dispatch queue (max inflight + max
+             queued, deadline-aware shedding)
+- breaker:   the circuit breaker on consecutive device failures, with a
+             background healer thread that half-opens through the
+             runner's device probe (a stream synchronize on the card)
+             while fallback-capable statements are served by the
+             interpreter (path "fallback_breaker")
+- faults:    the EngineConfig.fault_injector sites (dispatch /
+             host-transfer / reprobe / ingest / batch-leg / append /
+             wal-write / wal-replay / compact / spill-write /
+             manifest-swap / store-load / wal-truncate / stage-*)
+
+The per-query deadline and its wedge recovery, and the pipelined mode's
+use of `AdmissionController.pipeline_slot`, come with ROADMAP queue A
+item 12b; the metrics and events of the admission controller and the
+breaker come with item 14.
+"""
+
+from tpu_olap_torch.resilience.admission import AdmissionController
+from tpu_olap_torch.resilience.breaker import CircuitBreaker
+from tpu_olap_torch.resilience.errors import (BreakerOpen, DeviceFailure,
+                                              IngestBackpressure,
+                                              InternalError, QueryError,
+                                              QueryShed, UserError)
+from tpu_olap_torch.resilience.faults import FaultInjector, maybe_inject
+
+__all__ = [
+    "AdmissionController", "BreakerOpen", "CircuitBreaker",
+    "DeviceFailure", "FaultInjector", "IngestBackpressure",
+    "InternalError", "QueryError", "QueryShed", "UserError",
+    "maybe_inject",
+]

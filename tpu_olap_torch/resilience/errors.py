@@ -5,9 +5,11 @@ hint (may the client retry the same request later?), and the
 `http_status` a server maps it to — so clients can tell "retry later"
 (429/503/504) from "your SQL is wrong" (400) without parsing message
 text. The fallback interpreter's refusal (planner.fallback.FallbackError)
-subclasses it, and the cube DDL's refusals raise `UserError`. The JAX
-package's other members (shed, breaker, ingest backpressure, device
-failure) belong to subsystems this package does not have yet.
+subclasses it, the cube DDL's refusals raise `UserError`, admission
+sheds `QueryShed`, the open breaker refuses with `BreakerOpen`, a full
+delta sheds appends with `IngestBackpressure`; `DeviceFailure` and
+`InternalError` complete the JAX package's tree. The deadline's
+`QueryDeadlineExceeded` comes with ROADMAP queue A item 12b.
 """
 
 from __future__ import annotations
@@ -36,3 +38,67 @@ class UserError(QueryError, ValueError):
     code = "user_error"
     retriable = False
     http_status = 400
+
+
+class QueryShed(QueryError):
+    """Admission control rejected the query: the dispatch queue is full,
+    or the query's remaining deadline budget cannot cover the expected
+    queue wait (shedding now beats timing out later). Transient by
+    definition — retry with backoff."""
+
+    code = "shed"
+    retriable = True
+    http_status = 429
+
+    def __init__(self, msg: str, reason: str = "queue_full"):
+        super().__init__(msg)
+        self.reason = reason
+
+
+class BreakerOpen(QueryError):
+    """The device circuit breaker is open: consecutive failures tripped
+    it and the healer has not yet closed it. `retry_after_s` is the
+    cooldown remaining — the server sends it as Retry-After."""
+
+    code = "breaker_open"
+    retriable = True
+    http_status = 503
+
+    def __init__(self, msg: str, retry_after_s: float = 1.0):
+        super().__init__(msg)
+        self.retry_after_s = max(0.0, float(retry_after_s))
+
+
+class IngestBackpressure(QueryError):
+    """Real-time append rejected: the table's in-memory delta is at
+    `ingest_max_delta_rows` and accepting more would grow host memory
+    unboundedly ahead of the compactor. Explicit 429 + Retry-After —
+    never a silent drop; retry after the compactor drains the delta
+    (docs/INGEST.md)."""
+
+    code = "ingest_backpressure"
+    retriable = True
+    http_status = 429
+
+    def __init__(self, msg: str, retry_after_s: float = 1.0):
+        super().__init__(msg)
+        self.retry_after_s = max(0.0, float(retry_after_s))
+
+
+class DeviceFailure(QueryError):
+    """Device dispatch failed after retries exhausted and no fallback
+    was available (fallback_on_device_failure=False, or a raw-IR
+    passthrough with no interpreter equivalent)."""
+
+    code = "device_failure"
+    retriable = True
+    http_status = 500
+
+
+class InternalError(QueryError, RuntimeError):
+    """Engine-internal invariant violation (e.g. a batch leader exiting
+    without producing a result). A bug, not a client problem."""
+
+    code = "internal"
+    retriable = False
+    http_status = 500
