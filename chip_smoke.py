@@ -40,8 +40,9 @@ Phases, each printing its own line; any failure exits nonzero:
      before, and cold (L2 overwritten before each launch, the overwrite
      not counted); the JSON line carries the cold times;
   6. the packed path: the 13 queries once more under
-     torch.cuda.set_sync_debug_mode("error"), lifted only around the one
-     device-to-host copy, so any host sync before it fails; then each
+     torch.cuda.set_sync_debug_mode("error"), lifted only around stage
+     2's wait for the one device-to-host copy (queued non-blocking into
+     pinned memory in stage 1), so any host sync before it fails; then each
      query's packed and unpacked p50, in turns in one call;
   7. the distinct-count queries x1-x4 (ssb.DISTINCT_QUERIES: dense HLL
      and theta, packed; a theta intersection, unpacked; a four-dimension
@@ -112,7 +113,7 @@ Phases, each printing its own line; any failure exits nonzero:
      exactly, the multi-leg kernel launches once per fused group, B1
      once per single leg and never for a fused one, one copy per group,
      and (a) and (b) run under set_sync_debug_mode("error") lifted only
-     for the copy. Per batch: its fused groups and single legs, first
+     for the copy's wait. Per batch: its fused groups and single legs, first
      run (NVRTC compile of a new composition included) and p50 against
      the sum of its statements' single p50s; per composition the
      compile record (registers, spills); device busy under
@@ -174,11 +175,37 @@ Phases, each printing its own line; any failure exits nonzero:
      within EngineConfig's cooldown + 1 s of the trip (timed inside the
      healer) and q2.1 launches B1 again ((e) runs between (c) and (d),
      on the ingest engine).
+  14. pipeline and deadline, on engines over the SF1 segments: (a) the
+     pipelined two-stage mode (pipeline_depth 4, the default) against
+     the serialized one (0): the 13 in one thread, p50 over --reps per
+     mode with the modes alternating, then 8 threads each running the 13
+     in its own order (seed = thread index) 3 rounds; every answer ==
+     phase 4's frame exactly, B1 once per statement and one copy each
+     (counts set to 0 just before); per mode the wall time, statements
+     per second, per-query p50 and p99 and dispatch_lock_wait_ms p50 and
+     p99 from the registry; which routes still sync with the host before
+     stage 2's wait (each under set_sync_debug_mode("error")), and the 13
+     on the pipelined engine under it, lifted only around the event
+     wait; (b) a real wedge: query_deadline_s 0.5, a fault injector
+     that launches torch.cuda._sleep at the dispatch site, sized to spin
+     3 s on the stream (B1 queues behind it); in each mode q2.1 raises
+     QueryDeadlineExceeded within 0.65 s (deadline_exceeded recorded),
+     again while the spin runs (device_probe_failed), and after the spin
+     answers on the card (device_probe_recovered, stacks re-uploaded, no
+     NVRTC compile, == phase 4's frame), the breaker closed; (c) the 13
+     as one shared-scan batch behind a spin: every guarded dispatch
+     raises QueryDeadlineExceeded within 0.65 s and every leg is boxed
+     with it; after the spin the batch == phase 11 (a)'s answers; (d)
+     EXPLAIN ANALYZE of q3.2: its spans with their ms (the root's
+     children sum to within its total), counters() and the registry's
+     lock-wait, transfer and deadline lines.
   Every engine the smoke builds has fallback_on_device_failure off
   (new_engine), so a failure on the card's path fails the smoke instead
   of being served by the pandas interpreter; (e) turns it on only for
   the serve while the breaker is open.
-The phases run in the order 1-4, 10, 5-8, 11, 12, 13, 9. Every torch.profiler
+Every engine runs pipelined (EngineConfig.pipeline_depth 4) unless a
+phase says otherwise. The phases run in the order 1-4, 10, 5-8, 11, 12,
+13, 14, 9. Every torch.profiler
 reading stands only when
 its profile holds one device activity for each kernel launch, copy and
 fill the host issued in it (`profiled`): the profiler now and then drops
@@ -588,22 +615,23 @@ def plan_report(kern) -> str:
 
 class SyncChecked:
     """torch.cuda.set_sync_debug_mode("error") around a block, lifted
-    only inside runner.to_host (the one device-to-host copy), so any other
-    host sync raises."""
+    only inside runner.wait_event (stage 2's wait for the route's one
+    device-to-host copy, which stage 1 queued non-blocking into pinned
+    memory), so any other host sync raises."""
 
     def __enter__(self):
         import torch
         from tpu_olap_torch.executor import runner as runner_mod
-        self.real = real = runner_mod.to_host
+        self.real = real = runner_mod.wait_event
 
-        def copy_allowed(buf, metrics):
+        def wait_allowed(event):
             torch.cuda.set_sync_debug_mode(0)
             try:
-                return real(buf, metrics)
+                return real(event)
             finally:
                 torch.cuda.set_sync_debug_mode("error")
 
-        runner_mod.to_host = copy_allowed
+        runner_mod.wait_event = wait_allowed
         torch.cuda.set_sync_debug_mode("error")
         return self
 
@@ -611,7 +639,7 @@ class SyncChecked:
         import torch
         from tpu_olap_torch.executor import runner as runner_mod
         torch.cuda.set_sync_debug_mode(0)
-        runner_mod.to_host = self.real
+        runner_mod.wait_event = self.real
         return False
 
 
@@ -633,8 +661,9 @@ def packed_phase(eng, reps, tag):
                 fail(f"{name} under sync debug: route {m['route']}, "
                      f"{m['host_copies']} copies")
     print("[6 packed] 13/13 queries ran the packed route under "
-          "torch.cuda.set_sync_debug_mode('error') (lifted only for the one "
-          "device-to-host copy): no host sync before the copy", flush=True)
+          "torch.cuda.set_sync_debug_mode('error') (lifted only for stage "
+          "2's wait on the one device-to-host copy): no host sync before "
+          "it", flush=True)
 
     def unpacked(plan, metrics):
         return None  # _run_agg then takes the unpacked route
@@ -997,8 +1026,8 @@ def scan_phase(eng, d, reps, tag, flush_l2):
                 except RuntimeError as e:
                     fail(f"{name}: a host sync before the copy: {e}")
     print("[8 sync] scans, pages and searches ran under torch.cuda."
-          "set_sync_debug_mode('error'), lifted only for the copy: no host "
-          "sync before it", flush=True)
+          "set_sync_debug_mode('error'), lifted only for the copy's wait: "
+          "no host sync before it", flush=True)
 
     # timings
     for name, kind, fn, _, _ in queries:
@@ -2549,7 +2578,7 @@ def tpch_phase(workdir, reps, tag):
           f"card (ints exact, floats rtol 1e-9, approximate columns rtol "
           f"0.12); {n_synced} whose device work is all B1 ran under "
           f"torch.cuda.set_sync_debug_mode('error'), lifted only for the "
-          f"copy: no host sync before it; B1 launches in the phase {total} "
+          f"copies' waits: no host sync before them; B1 launches in the phase {total} "
           f"({time.perf_counter() - t0:.1f} s so far)", flush=True)
 
     busy = device_busy({n: (lambda q=q: eng.sql(q))
@@ -2736,6 +2765,420 @@ def sf10_phase(workdir, rows, reps, tag, flush_l2):
         fail("the SF10 fallback materialized the whole lineorder frame")
     eng.clear_cache()
     return rows_json[1], batch_row
+
+
+PIPE_THREADS = 8                  # phase 14 (a): concurrent callers
+PIPE_ROUNDS = 3                   # the 13 per thread, in its own order
+WEDGE_DEADLINE_S = 0.5            # phase 14 (b)/(c): query_deadline_s
+WEDGE_SLACK_S = 0.15              # a deadline's raise is due within this
+WEDGE_SPIN_S = 3.0                # (b): the spin kernel's length
+
+
+class Wedge:
+    """A fault injector at the "dispatch" site that, once armed, launches
+    torch.cuda._sleep (the profiler's primer kernel) on the current
+    stream, sized to spin `seconds`, and returns: the statement's own
+    kernels then queue behind it, as behind a hung kernel."""
+
+    stages = {"dispatch"}
+
+    def __init__(self, cycles_per_s):
+        self.cycles_per_s = cycles_per_s
+        self.seconds = 0.0
+        self.fired_at = None
+
+    def arm(self, seconds):
+        self.seconds = seconds
+
+    def __call__(self, stage, attempt):
+        if self.seconds:
+            import torch
+            torch.cuda._sleep(int(self.seconds * self.cycles_per_s))
+            self.fired_at = time.perf_counter()
+            self.seconds = 0.0
+
+    def drain(self):
+        """Wait until the stream has run the spin out."""
+        import torch
+        t = time.perf_counter()
+        while not torch.cuda.current_stream().query():
+            if time.perf_counter() - t > 60:
+                fail("the wedge's spin kernel never ended")
+            time.sleep(0.02)
+
+
+def spin_rate() -> float:
+    """torch.cuda._sleep cycles per second on this card (CUDA events)."""
+    import torch
+    cycles = 1 << 27
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    return cycles / (a.elapsed_time(b) / 1000)
+
+
+def stage1_syncs(seg, tables, frames) -> dict:
+    """Which routes still sync with the host before stage 2's wait: each
+    runs under SyncChecked on a pipelined engine over the SF1 segments
+    (the breaker off and no retries, so that a sync error is one
+    statement's failure). {route: "no sync" or the error}."""
+    from tpu_olap_torch.bench import ssb
+    eng = ssb_engine(seg, tables, breaker_failure_threshold=0,
+                     dispatch_retries=0)
+    routes = {
+        "packed (the 13, B1)": lambda: [eng.sql(q)
+                                        for q in ssb.QUERIES.values()],
+        "generic reduce (q2.1, use_fused_reduce=never)":
+            lambda: eng.sql(ssb.QUERIES["q2.1"]),
+        "HLL, dense (x1)": lambda: eng.sql(ssb.DISTINCT_QUERIES["x1"]),
+        "theta, dense (x2)": lambda: eng.sql(ssb.DISTINCT_QUERIES["x2"]),
+        "theta set-op, unpacked (x3)":
+            lambda: eng.sql(ssb.DISTINCT_QUERIES["x3"]),
+        "sparse (x4)": lambda: eng.sql(ssb.DISTINCT_QUERIES["x4"]),
+        "scan, mask (scan A)": lambda: eng.sql(SCAN_A),
+        "search, coded (SEARCH verb)": lambda: eng.sql(SEARCH_VERB),
+        "fused batch (the 13 as sql_batch)":
+            lambda: eng.sql_batch(list(ssb.QUERIES.values())),
+        "tier 1, segment-extended B1 (q2.1 window)":
+            lambda: eng.sql(tier1_statements(ssb)["q2.1"][0]),
+    }
+    out = {}
+    for label, run in routes.items():
+        eng.config.use_fused_reduce = "never" if "generic" in label \
+            else "auto"
+        eng.config.segment_cache_enabled = "tier 1" in label
+        run()   # warm outside the check: compiles, uploads
+        with SyncChecked():
+            try:
+                run()
+                out[label] = "no sync"
+            except RuntimeError as e:
+                out[label] = f"syncs ({str(e).splitlines()[0][:80]})"
+    eng.close()
+    return out
+
+
+def gil_released(rate) -> tuple:
+    """Whether torch.cuda.Event.synchronize releases the GIL: a thread
+    waits on an event recorded behind a 0.4 s spin while this thread
+    sleeps 10 ms and counts loop iterations for 0.2 s. Returns (this
+    thread's wall s, iterations, iterations with no waiter): a wait that
+    held the GIL would keep this thread off it until the spin ended."""
+    import threading
+
+    import torch
+
+    def count(s):
+        n, end = 0, time.perf_counter() + s
+        while time.perf_counter() < end:
+            n += 1
+        return n
+    base = count(0.2)
+    torch.cuda._sleep(int(0.4 * rate))
+    ev = torch.cuda.Event(blocking=True)
+    ev.record()
+    th = threading.Thread(target=ev.synchronize)
+    t = time.perf_counter()
+    th.start()
+    time.sleep(0.01)
+    n = count(0.2)
+    wall = time.perf_counter() - t
+    th.join()
+    return wall, n, base
+
+
+def stage_means(recs) -> dict:
+    """Mean ms per statement of each stage section's run time, and of
+    the lock wait and stage 2's copy wait, over `recs`."""
+    out: dict = {}
+    for r in recs:
+        for st in r.get("stages", []):
+            out[st["stage"]] = out.get(st["stage"], 0.0) + st["run_ms"]
+        for k in ("lock_wait_ms", "transfer_ms"):
+            out[k] = out.get(k, 0.0) + (r.get(k) or 0.0)
+    return {k: round(v / max(1, len(recs)), 3) for k, v in out.items()}
+
+
+def pipeline_phase(seg, tables, frames, reps, tag):
+    """Phase 14: the pipelined two-stage mode against the serialized one,
+    a real wedge under the per-query deadline, the batch under the
+    deadline, and EXPLAIN ANALYZE's span tree, on the SF1 segments."""
+    import random
+    import threading
+
+    import numpy as np
+    import pandas as pd
+    import torch
+    from tpu_olap_torch.bench import ssb
+    from tpu_olap_torch.executor.runner import QueryDeadlineExceeded
+    from tpu_olap_torch.kernels import cuda_build
+    from tpu_olap_torch.kernels import fused_reduce as fr
+    names = list(ssb.QUERIES)
+    t_phase = time.perf_counter()
+
+    # (a) pipelined against serialized
+    engs = {depth: ssb_engine(seg, tables, pipeline_depth=depth,
+                              batch_window_ms=0)
+            for depth in (4, 0)}
+    mode = {4: "pipelined", 0: "serialized"}
+    for e in engs.values():
+        for q in ssb.QUERIES.values():
+            e.sql(q)   # warm: stacks, plans
+    ts = {d: {n: [] for n in names} for d in engs}
+    one0 = {d: len(e.history) for d, e in engs.items()}
+    for r in range(reps):
+        for d in ((4, 0) if r % 2 == 0 else (0, 4)):
+            for n in names:
+                t = time.perf_counter()
+                got = engs[d].sql(ssb.QUERIES[n])
+                ts[d][n].append((time.perf_counter() - t) * 1000)
+                if r == 0:
+                    pd.testing.assert_frame_equal(got, frames[n])
+    one1 = {d: len(e.history) for d, e in engs.items()}
+    for d, e in engs.items():
+        fr.launches = 0
+        h0 = len(e.history)
+        for n in names:
+            e.sql(ssb.QUERIES[n])
+        recs = list(e.history)[h0:]
+        if fr.launches != len(names) or any(
+                r.get("host_copies") != 1 or r.get("route") != "packed"
+                or bool(r.get("pipelined")) != (d > 0) for r in recs):
+            got = [(r.get("route"), r.get("host_copies"),
+                    r.get("pipelined")) for r in recs]
+            fail(f"14 (a) {mode[d]}: B1 launches {fr.launches} for "
+                 f"{len(names)} statements; (route, copies, pipelined) "
+                 f"{got}")
+    for d, e in engs.items():
+        p = {n: round(float(np.median(v)), 3) for n, v in ts[d].items()}
+        means = stage_means(list(e.history)[one0[d]:one1[d]])
+        print(f"[14 one thread] {mode[d]}: per-query p50 over {reps} runs "
+              f"(modes alternating) {json.dumps(p)}; sum "
+              f"{sum(p.values()):.3f} ms; mean ms per statement by stage "
+              f"section {json.dumps(means)} {tag}", flush=True)
+    for d, e in engs.items():
+        e.runner.metrics.histogram("dispatch_lock_wait_ms").series.clear()
+        lat, errs = [], []
+        fr.launches = 0
+        h0 = len(e.history)
+
+        def worker(i, e=e, lat=lat, errs=errs):
+            order = names[:]
+            random.Random(i).shuffle(order)
+            try:
+                for _ in range(PIPE_ROUNDS):
+                    for n in order:
+                        t = time.perf_counter()
+                        got = e.sql(ssb.QUERIES[n])
+                        lat.append((n, (time.perf_counter() - t) * 1000))
+                        pd.testing.assert_frame_equal(got, frames[n])
+            except Exception as ex:  # noqa: BLE001 — fails the phase
+                errs.append(f"{type(ex).__name__}: {ex}")
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(PIPE_THREADS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t
+        n_stmt = PIPE_THREADS * PIPE_ROUNDS * len(names)
+        recs = list(e.history)[h0:]
+        if errs or len(lat) != n_stmt:
+            fail(f"14 (a) {mode[d]}, {PIPE_THREADS} threads: {errs[:3]}")
+        if fr.launches != n_stmt or any(r.get("host_copies") != 1
+                                        for r in recs):
+            fail(f"14 (a) {mode[d]}, {PIPE_THREADS} threads: B1 launches "
+                 f"{fr.launches} for {n_stmt} statements, copies "
+                 f"{sorted({r.get('host_copies') for r in recs})}")
+        h = e.runner.metrics.histogram("dispatch_lock_wait_ms")
+        by_q = {n: [ms for m, ms in lat if m == n] for n in names}
+        print(f"[14 threads] {mode[d]}: {PIPE_THREADS} threads x "
+              f"{PIPE_ROUNDS} rounds of the 13 (own order each), {n_stmt} "
+              f"statements in {wall:.3f} s = {n_stmt / wall:.1f} "
+              f"statements/s; every answer == phase 4's frame exactly, "
+              f"B1 once per statement, one copy each; per-query p50/p99 ms "
+              + json.dumps({n: [round(float(np.percentile(v, 50)), 3),
+                                round(float(np.percentile(v, 99)), 3)]
+                            for n, v in by_q.items()})
+              + f"; dispatch_lock_wait_ms p50 {h.quantile(0.5):.3f} p99 "
+              f"{h.quantile(0.99):.3f} (registry, "
+              f"{sum(s.n for s in h.series.values())} waits) {tag}",
+              flush=True)
+    rate = spin_rate()
+    wall, n, base = gil_released(rate)
+    if wall > 0.3:
+        fail(f"torch.cuda.Event.synchronize held the GIL: this thread "
+             f"waited {wall:.3f} s behind a 0.4 s spin")
+    print(f"[14 GIL] while a thread waited on an event behind a 0.4 s "
+          f"spin, this thread ran {n} loop iterations in 0.2 s ({base} "
+          f"with no waiter) and got back in {wall:.3f} s: "
+          f"Event.synchronize releases the GIL {tag}", flush=True)
+    pip = engs[4]
+    syncs = stage1_syncs(seg, tables, frames)
+    print(f"[14 stage 1] routes under set_sync_debug_mode('error') lifted "
+          f"only for stage 2's event wait: {json.dumps(syncs)}", flush=True)
+    if syncs["packed (the 13, B1)"] != "no sync":
+        fail(f"the packed route syncs before stage 2's wait: "
+             f"{syncs['packed (the 13, B1)']}")
+    with SyncChecked():
+        for n in names:
+            try:
+                pd.testing.assert_frame_equal(pip.sql(ssb.QUERIES[n]),
+                                              frames[n])
+            except RuntimeError as e:
+                fail(f"14 (a) {n}: a host sync before stage 2's wait: {e}")
+    print("[14 sync] the 13 on the pipelined engine under "
+          "set_sync_debug_mode('error'), lifted only around stage 2's "
+          "event wait: no host sync before it, answers exact", flush=True)
+    for e in engs.values():
+        e.close()
+
+    # (b) a real wedge under the deadline
+    print(f"[14 wedge] torch.cuda._sleep spins {rate / 1e9:.3f} G cycles/s "
+          f"on this card", flush=True)
+    q21 = ssb.QUERIES["q2.1"]
+    for depth in (4, 0):
+        wedge = Wedge(rate)
+        e = ssb_engine(seg, tables, pipeline_depth=depth,
+                       dispatch_retries=0, fault_injector=wedge)
+        pd.testing.assert_frame_equal(e.sql(q21), frames["q2.1"])  # warm
+        e.config.query_deadline_s = WEDGE_DEADLINE_S
+        pd.testing.assert_frame_equal(e.sql(q21), frames["q2.1"])
+        ds_before = e.runner._datasets["lineorder"]
+        n_kernels = len(cuda_build._kernels)
+        steps = []
+        for i, want in enumerate(("deadline_exceeded",
+                                  "device_probe_failed")):
+            if i == 0:
+                wedge.arm(WEDGE_SPIN_S)
+            h0 = len(e.history)
+            t = time.perf_counter()
+            try:
+                e.sql(q21)
+                fail(f"14 (b) {mode[depth]} step {i + 1}: q2.1 answered "
+                     f"behind the spin")
+            except QueryDeadlineExceeded:
+                pass
+            took = time.perf_counter() - t
+            if took > WEDGE_DEADLINE_S + WEDGE_SLACK_S or not any(
+                    r.get(want) for r in list(e.history)[h0:]):
+                fail(f"14 (b) {mode[depth]} step {i + 1}: raised after "
+                     f"{took:.3f} s; records {list(e.history)[h0:]}")
+            steps.append(took)
+        wedge.drain()
+        spun = time.perf_counter() - wedge.fired_at
+        h0 = len(e.history)
+        t = time.perf_counter()
+        got = e.sql(q21)
+        steps.append(time.perf_counter() - t)
+        pd.testing.assert_frame_equal(got, frames["q2.1"])
+        recs = list(e.history)[h0:]
+        reup = e.runner._datasets["lineorder"] is not ds_before
+        compiles = len(cuda_build._kernels) - n_kernels
+        if not any(r.get("device_probe_recovered") for r in recs) \
+                or not reup or compiles or e.runner.breaker.state != "closed" \
+                or recs[-1].get("route") != "packed":
+            fail(f"14 (b) {mode[depth]} recovery: records {recs}, stacks "
+                 f"re-uploaded {reup}, NVRTC compiles {compiles}, breaker "
+                 f"{e.runner.breaker.state}")
+        print(f"[14 wedge] {mode[depth]}: a {WEDGE_SPIN_S:.0f} s spin "
+              f"launched at the dispatch site, B1 queued behind it; q2.1 "
+              f"raised QueryDeadlineExceeded in {steps[0]:.3f} s "
+              f"(deadline {WEDGE_DEADLINE_S} s, deadline_exceeded "
+              f"recorded); again while it spun in {steps[1]:.3f} s "
+              f"(device_probe_failed); after the spin ended ({spun:.3f} s "
+              f"after launch) answered on the card in {steps[2]:.3f} s "
+              f"(device_probe_recovered, stacks re-uploaded, {compiles} "
+              f"NVRTC compiles, == phase 4's frame); breaker "
+              f"{e.runner.breaker.state} {tag}", flush=True)
+        if depth == 4:
+            deadline_lines = [ln for ln in e.metrics.render().splitlines()
+                              if ln.startswith(
+                                  "tpu_olap_deadline_exceeded_total")]
+        e.close()
+
+    # (c) the batch under the deadline
+    wedge = Wedge(rate)
+    e = ssb_engine(seg, tables, dispatch_retries=0, fault_injector=wedge,
+                   breaker_failure_threshold=64)
+    e.sql_batch(list(ssb.QUERIES.values()))   # warm: compositions, stacks
+    e.config.query_deadline_s = WEDGE_DEADLINE_S
+    queries = [e.planner.plan(q).query for q in ssb.QUERIES.values()]
+    calls = []
+    for attr in ("_guarded_dispatch", "_execute_guarded"):
+        real = getattr(e.runner, attr)
+
+        def timed_call(*a, real=real, attr=attr):
+            t = time.perf_counter()
+            try:
+                return real(*a)
+            except Exception as ex:
+                calls.append((attr, time.perf_counter() - t,
+                              type(ex).__name__))
+                raise
+        setattr(e.runner, attr, timed_call)
+    wedge.arm(len(queries) * (WEDGE_DEADLINE_S + WEDGE_SLACK_S) + 1.0)
+    t = time.perf_counter()
+    boxed = e.runner._execute_batch_boxed(queries, seg)
+    took = time.perf_counter() - t
+    for attr in ("_guarded_dispatch", "_execute_guarded"):
+        del e.runner.__dict__[attr]
+    late = [c for c in calls if c[1] > WEDGE_DEADLINE_S + WEDGE_SLACK_S
+            or c[2] != "QueryDeadlineExceeded"]
+    if not all(isinstance(b, QueryDeadlineExceeded) for b in boxed) \
+            or late or not calls:
+        fail(f"14 (c): boxed {[type(b).__name__ for b in boxed]}; "
+             f"dispatches (call, s, error) {calls}")
+    wedge.drain()
+    # the recovery's re-upload of every leg's stacks rides the first
+    # dispatch: a looser deadline for it (the wedge flag is read only
+    # under a deadline, so the reprobe still runs)
+    e.config.query_deadline_s = 10 * WEDGE_DEADLINE_S
+    outs = e.sql_batch(list(ssb.QUERIES.values()))
+    if not any(r.get("device_probe_recovered") for r in e.history):
+        fail("14 (c): the batch after the spin did not re-probe")
+    for n, got in zip(names, outs):
+        pd.testing.assert_frame_equal(got, frames[n])
+    print(f"[14 batch] the 13 as one shared-scan batch behind the spin: "
+          f"{len(calls)} guarded dispatches (fused groups and single "
+          f"legs), each raised QueryDeadlineExceeded in "
+          f"{min(c[1] for c in calls):.3f}-{max(c[1] for c in calls):.3f} s"
+          f", every leg boxed QueryDeadlineExceeded ({took:.3f} s in all); "
+          f"after the spin the batch == phase 11 (a)'s answers (phase 4's "
+          f"frames, which (a) equals exactly) {tag}", flush=True)
+    e.close()
+
+    # (d) the trace
+    e = ssb_engine(seg, tables)
+    e.sql(ssb.QUERIES["q3.2"])
+    ea = e.sql("EXPLAIN ANALYZE " + ssb.QUERIES["q3.2"])
+    spans = [(s, ms) for s, ms in zip(ea["span"], ea["ms"])]
+    root = spans[0][1]
+    top = sum(ms for s, ms in spans if s.startswith("  ")
+              and not s.startswith("    "))
+    if spans[0][0] != "sql" or top > root + 1e-6:
+        fail(f"14 (d): EXPLAIN ANALYZE spans {spans}")
+    print(f"[14 trace] EXPLAIN ANALYZE q3.2 (ms): "
+          + "; ".join(f"{'>' * ((len(s) - len(s.lstrip())) // 2)}"
+                      f"{s.strip()} {ms:.3f}" for s, ms in spans)
+          + f" | the root's children sum to {top:.3f} of {root:.3f} ms "
+          f"{tag}", flush=True)
+    lines = [ln for ln in e.metrics.render().splitlines()
+             if ln.startswith(("tpu_olap_dispatch_lock_wait_ms_sum",
+                               "tpu_olap_dispatch_lock_wait_ms_count",
+                               "tpu_olap_inflight_transfers",
+                               "tpu_olap_pipeline_inflight"))]
+    print(f"[14 trace] counters() {json.dumps(e.counters())}; registry "
+          f"{' | '.join(lines + deadline_lines)}", flush=True)
+    e.close()
+    print(f"[14 pipeline] phase 14 took {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
 
 
 def main():
@@ -3044,6 +3487,12 @@ def main():
               flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 14. pipeline and deadline ------------------------------------------
+    pipeline_phase(seg, tables, {n: frames[("auto", n)] for n in ssb.QUERIES},
+                   args.reps, tag)
     gc.collect()
     torch.cuda.empty_cache()
 

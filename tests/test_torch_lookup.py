@@ -103,15 +103,12 @@ def test_drop_table_as_in_jax():
 
 def test_engine_surface_left_to_later_items():
     """The JAX Engine's methods the port still lacks are exactly those of
-    ROADMAP queue A item 14 (tracing, history, sys tables, SLO
-    accounting, the sentinel's WAL-lag probe); item 12's ingest surface
-    is ported."""
+    the rest of ROADMAP queue A item 14 (the sys tables, the sentinel's
+    WAL-lag probe); item 12's ingest surface and item 14's tracing,
+    history, counters and SLO accounting are ported."""
     def names(cls):
         return {n for n in dir(cls) if not n.startswith("__")}
     later = {
-        14: {"history", "counters", "_sql_traced", "_sql_traced_inner",
-             "_sql_batch_ids_inner", "_execute_sys_stmt",
-             "_execute_fallback_recorded", "_observe_failure",
-             "_wal_lag_probe"},
+        14: {"_execute_sys_stmt", "_wal_lag_probe"},
     }
     assert names(JaxEngine) - names(Engine) == set().union(*later.values())

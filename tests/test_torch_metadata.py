@@ -28,7 +28,6 @@ from tpu_olap.executor import EngineConfig as JaxConfig
 from tpu_olap.executor import QueryRunner as JaxRunner
 from tpu_olap.ir import serde as jax_serde
 from tpu_olap.kernels.topk import top_k_groups as jax_top_k_groups
-from tpu_olap_torch.api.engine import NotYetPorted
 from tpu_olap_torch.executor import EngineConfig, QueryRunner
 from tpu_olap_torch.ir.serde import query_from_json
 from tpu_olap_torch.kernels.topk import top_k_groups
@@ -306,13 +305,23 @@ def test_sql_scan_with_nothing_ported_missing(engines):
     ("EXPLAIN ANALYZE SELECT count(*) AS n FROM t", "item 14"),
 ])
 def test_unported_verbs_raise(engines, sql, item):
-    """EXPLAIN ANALYZE (item 14) still raises NotYetPorted. The ingest
-    verbs of item 12 are ported: on fresh engines over the same table
-    they answer (or refuse) as the JAX package does."""
-    _, port, df = engines
+    """The verbs the port once refused answer as the JAX package
+    does. EXPLAIN ANALYZE (item 14's tracer) runs the statement in both
+    packages and returns its span tree: the same columns, the same root
+    and the same spans under it. The ingest verbs of item 12: on fresh
+    engines over the same table they answer (or refuse) as the JAX
+    package does."""
+    jax, port, df = engines
     if item != "item 12":
-        with pytest.raises(NotYetPorted, match=f"not yet ported.*{item}"):
-            port.sql(sql)
+        want, got = jax.sql(sql), port.sql(sql)
+        assert list(got.columns) == list(want.columns) == \
+            ["span", "ms", "detail"]
+
+        def top(frame):   # the root and its children (depth <= 1)
+            return [s for s in frame["span"] if not s.startswith("    ")]
+        assert top(got) == top(want) == \
+            ["sql", "  parse", "  plan", "  execute", "  render"]
+        assert json.loads(got["detail"][0])["rows_returned"] == 1
         return
     jax = JaxEngine(JaxConfig(ingest_auto_compact=False))
     fresh = cpu_engine(ingest_auto_compact=False)

@@ -1,7 +1,7 @@
 """Resilience in the PyTorch port against the JAX package.
 
 From tests/test_resilience.py: the error taxonomy, admission, the
-breaker (its metrics export waits for the metrics registry), the
+breaker, the
 host-transfer, ingest, reprobe and batch-leg fault sites and the legacy
 injector. From tests/test_fault_recovery.py: dispatch retries, the
 device-failure fallback and quiescence. From tests/test_pipeline.py: the
@@ -9,9 +9,10 @@ ledger's in-flight pin, the stage pools' bounds, reclaim and
 reentrancy, and the background graphs' runs, wakes, rearms and recorded
 faults. Each scenario runs the same way in both packages where the JAX
 package can run it on the CPU (numpy platform, use_pallas="never"), and
-the answers are compared with assert_frame_parity. Deadlines, the
-pipelined mode and shard degradation come with later slices. The
-card-only cases skip without CUDA.
+the answers are compared with assert_frame_parity. Deadlines and the
+pipelined mode are held in test_torch_deadline.py and
+test_torch_pipeline.py; shard degradation comes with the multi-GPU
+slice. The card-only cases skip without CUDA.
 """
 
 import threading
@@ -32,6 +33,7 @@ from tpu_olap_torch import Engine
 from tpu_olap_torch.bench.parity import assert_frame_parity
 from tpu_olap_torch.executor.config import EngineConfig
 from tpu_olap_torch.executor.dataset import DeviceDataset, HbmLedger
+from tpu_olap_torch.executor.runner import QueryDeadlineExceeded
 from tpu_olap_torch.executor.stages import StageScheduler
 from tpu_olap_torch.resilience import (AdmissionController, BreakerOpen,
                                        CircuitBreaker, FaultInjector,
@@ -383,8 +385,9 @@ def test_stage_pool_bounds_reclaims_and_reenters():
     t = threading.Thread(target=strand, daemon=True)
     t.start()
     assert entered.wait(5)
-    # the deadline's own exception type comes with the deadline itself
-    with pytest.raises(TimeoutError):
+    # a budget that runs out raises the deadline's own error, as the
+    # JAX package's pool does
+    with pytest.raises(QueryDeadlineExceeded):
         with pool.section(budget_s=0.05):
             pass
     time.sleep(0.25)

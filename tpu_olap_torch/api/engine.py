@@ -29,21 +29,31 @@ Real-time ingest (segments.delta): `append`, `compact_now`,
 TABLE`, `CHECKPOINT DRUID TABLE`; `register_table` replays a table's WAL
 and restores its checkpoint, `drop_table` deletes both, and `close`
 joins the background graphs (compactor, WAL flush, cube maintainer).
-EXPLAIN ANALYZE raises `NotYetPorted`, naming its ROADMAP item.
 
 `sql_batch` runs several statements as one submission: rewritten
 statements against one table share scans (executor.batch), and the
 same fallback rule holds per statement.
+
+Observability, as in the JAX package: every statement runs under a
+trace (`sql`, `sql_batch` or `ir` root; `parse`, `plan`, `execute`,
+`render` and the runner's spans below), leaves history records
+(`history`, `counters()`, the fallback's own record included), and
+counts once against the latency SLO — failures that propagate to the
+client at the statement boundary (`_observe_failure`). `EXPLAIN ANALYZE
+<sql>` runs the statement and returns its span tree. A deadline that
+expires (`QueryDeadlineExceeded`) is a device failure: the fallback
+serves it when `fallback_on_device_failure` is set. The `sys.*` tables,
+the HTTP server and the sentinel's WAL-lag probe come with the rest of
+ROADMAP queue A item 14.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import itertools
 import json
-import os
 import re
 import threading
+import time
 
 import numpy as np
 import pandas as pd
@@ -52,14 +62,18 @@ from tpu_olap_torch.catalog import Catalog, StarSchema, TableEntry
 from tpu_olap_torch.cubes import CubeRegistry
 from tpu_olap_torch.executor.config import EngineConfig
 from tpu_olap_torch.executor.dimplan import UnsupportedDimension
-from tpu_olap_torch.executor.runner import (QueryResult, QueryRunner,
-                                            nested_execution)
+from tpu_olap_torch.executor.runner import QueryResult, QueryRunner
 from tpu_olap_torch.ir.query import (SearchQueryContains, SearchQuerySpec,
                                      SelectQuerySpec)
 from tpu_olap_torch.ir.serde import query_from_json
 from tpu_olap_torch.kernels.filtereval import UnsupportedFilter
 from tpu_olap_torch.kernels.groupby import UnsupportedAggregation
 from tpu_olap_torch.kernels.timebucket import UnsupportedGranularity
+from tpu_olap_torch.obs.trace import (Trace, current_query_id,
+                                      in_nested_execution, nested_execution,
+                                      parse_traceparent, span as _span,
+                                      use_query_id, use_traceparent)
+from tpu_olap_torch.obs.workload import fingerprint_sql
 from tpu_olap_torch.planner import DruidPlanner
 from tpu_olap_torch.planner.cuberewrite import try_serve_cube
 from tpu_olap_torch.planner.fallback import execute_fallback
@@ -75,8 +89,26 @@ _UNSUPPORTED = (UnsupportedAggregation, UnsupportedFilter,
                 UnsupportedGranularity, UnsupportedDimension)
 
 
-class NotYetPorted(NotImplementedError):
-    """A statement verb of a subsystem the port does not have yet."""
+def _mark_slo_observed(e: BaseException):
+    """Stamp an exception whose failure was already counted against the
+    SLO (a recorded fallback failure) so that the statement boundary
+    (Engine._observe_failure) never counts one served failure twice.
+    Only for exceptions never shared across statements: the coalescer
+    fans one exception object out to N callers, each its own served
+    response."""
+    try:
+        e._slo_observed = True
+    except Exception:  # noqa: BLE001 — slotted/exotic exceptions
+        pass
+
+
+def _failure_status(e: BaseException) -> int:
+    """HTTP shape of a propagating failure: the taxonomy's http_status,
+    or 400 for ValueError/KeyError and 500 for the rest."""
+    status = getattr(e, "http_status", None)
+    if status is None:
+        return 400 if isinstance(e, (ValueError, KeyError)) else 500
+    return int(status)
 
 
 class Engine:
@@ -89,15 +121,16 @@ class Engine:
             if overrides else config
         self.catalog = Catalog()
         self.runner = QueryRunner(self.config)
+        # the observability surfaces live on the runner, where records
+        # complete; these aliases are the API
+        self.tracer = self.runner.tracer
+        self.metrics = self.runner.metrics
         # engine-level admin (clear, drop) and runner dispatch share one
-        # lock
+        # lock (held for stage-1 enqueue only in pipelined mode)
         self.device_lock = self.runner.dispatch_lock
         self.planner = DruidPlanner(self.catalog, self.config)
         self.last_plan = None
         self._tls = threading.local()   # per-thread nested metrics
-        # query ids: the JAX package's Tracer.new_query_id format
-        self._qid_seq = itertools.count(1)
-        self._qid_stamp = f"{os.getpid() & 0xffff:04x}{id(self) & 0xfff:03x}"
         # planner-initiated subquery execution: uncorrelated shapes
         # inline as literals so the outer query can push down; the inner
         # aggregate itself rides the device path when rewritable
@@ -248,8 +281,9 @@ class Engine:
         ``INSERT INTO t (cols) VALUES (...)``.
 
         Returns {table, rows, generation, sealed_generation, delta_rows,
-        watermark, wal_seq}. The JAX package's W3C `traceparent` comes
-        with ROADMAP queue A item 14."""
+        watermark, wal_seq}. The JAX package's W3C `traceparent` and the
+        ingest metrics and events come with the rest of ROADMAP queue A
+        item 14."""
         return self.ingest.append(table, rows)
 
     def compact_now(self, table: str | None = None):
@@ -309,22 +343,68 @@ class Engine:
         interpreter, and return a DataFrame. `runner.last_metrics` then
         says which route served the statement ("fallback" for the
         interpreter, "grouping_sets" for a union of device legs), and
-        "nested" lists the metrics of the statements it ran inside it.
+        "nested" lists the metrics of the statements it ran inside it;
+        `history` holds its records.
 
         Statement verbs beyond SELECT (SURVEY.md §3.1): `CLEAR DRUID
-        CACHE [table]`, `EXPLAIN DRUID REWRITE <sql>`, `ON DRUID
-        DATASOURCE <ds> EXECUTE QUERY '<json>'` and `SEARCH DRUID
-        DATASOURCE <ds> FOR '<text>' [IN d1, d2] [LIMIT n]`."""
+        CACHE [table]`, `EXPLAIN DRUID REWRITE <sql>`, `EXPLAIN ANALYZE
+        <sql>`, `ON DRUID DATASOURCE <ds> EXECUTE QUERY '<json>'` and
+        `SEARCH DRUID DATASOURCE <ds> FOR '<text>' [IN d1, d2] [LIMIT
+        n]`."""
+        return self._sql_traced(query)[0]
+
+    def _sql_traced(self, query: str, traceparent: str | None = None):
+        """sql() plus the completed trace (None for statement verbs or
+        with tracing off): the EXPLAIN ANALYZE entry point. A valid W3C
+        `traceparent` is stamped on the root span and the records; an
+        invalid one is ignored."""
+        tp = parse_traceparent(traceparent)
+        with use_traceparent(tp["traceparent"] if tp else None):
+            return self._sql_traced_inner(query, tp)
+
+    def _sql_traced_inner(self, query: str, tp: dict | None = None):
         verb = _match_verb(query)
         if verb is not None:
-            return verb(self)
+            return verb(self), None
+        from tpu_olap_torch.planner.sqlparse import parse_sql
         self._nested = []
-        plan = self.planner.plan(query)
-        self.last_plan = plan
-        out = self._execute_plan(plan)
+        with self.tracer.trace("sql") as root:
+            root.set(sql=query)
+            if tp is not None:
+                root.set(traceparent=tp["traceparent"],
+                         trace_id=tp["trace_id"],
+                         parent_span_id=tp["parent_id"])
+            try:
+                with root.span("parse"):
+                    stmt = parse_sql(query)
+                with root.span("plan") as sp:
+                    plan = self.planner.plan_stmt(stmt, query)
+                    sp.set(rewritten=plan.rewritten)
+                    if plan.fallback_reason:
+                        sp.set(fallback_reason=plan.fallback_reason)
+                self.last_plan = plan
+                out = self._execute_plan(plan)
+            except Exception as e:
+                # statement-boundary SLO accounting: a failure no inner
+                # record counted (a shed, a refusal, a device failure
+                # with fallback off) counts here, once
+                self._observe_failure(e)
+                raise
         if self._nested:
             self.runner.last_metrics["nested"] = self._nested
-        return out
+        return out, root if isinstance(root, Trace) else None
+
+    def _observe_failure(self, e: BaseException):
+        """Count a failure propagating to the client against the SLO:
+        exactly once (sites whose record already counted it marked the
+        exception), never for nested statements (the outer statement
+        accounts), and never for client-shaped errors (a 400 for bad SQL
+        must not burn the error budget; 429 and up do)."""
+        if getattr(e, "_slo_observed", False) or in_nested_execution():
+            return
+        if _failure_status(e) < 429:
+            return
+        self.runner.slo.observe(0.0, failed=True)
 
     def _execute_plan(self, plan) -> pd.DataFrame:
         if getattr(plan.stmt, "grouping_sets", None) is not None \
@@ -338,16 +418,22 @@ class Engine:
             # the device path, never an error
             res = try_serve_cube(self, plan)
             if res is not None:
-                return self._frame_from(plan, res)
+                with _span("render"):
+                    return self._frame_from(plan, res)
         device = {}
+        device_ms = 0.0   # the wall a failed device attempt burned
         if plan.rewritten:
+            t_dev = time.perf_counter()
             try:
-                res = self.runner.execute(plan.query, plan.entry.segments)
+                with _span("execute"):
+                    res = self.runner.execute(plan.query,
+                                              plan.entry.segments)
             except _UNSUPPORTED as e:
                 # a shape lowering refuses (e.g. a sparse GroupBy past
                 # sparse_group_budget): the interpreter serves it
                 plan.query = None
                 plan.fallback_reason = f"lowering failed: {e}"
+                device_ms = (time.perf_counter() - t_dev) * 1000
             except QueryShed:
                 # overload: the slower interpreter would amplify it
                 raise
@@ -361,32 +447,72 @@ class Engine:
                 device = {"fallback_breaker": True}
             except Exception as e:
                 # the runner's retries ran out (a launch or CUDA error,
-                # a failed copy): the interpreter serves the statement,
-                # recorded as such, or the error propagates
+                # a failed copy) or the deadline expired
+                # (QueryDeadlineExceeded): the interpreter serves the
+                # statement, recorded as such, or the error propagates
                 if not self.config.fallback_on_device_failure:
                     raise
                 plan.query = None
                 plan.fallback_reason = \
                     f"device failure: {type(e).__name__}: {e}"
+                device_ms = (time.perf_counter() - t_dev) * 1000
                 m = self.runner.last_metrics
                 device = {k: m[k] for k in ("retries", "retry_errors")
                           if k in m}
             else:
-                return self._frame_from(plan, res)
-        return self._execute_fallback(plan, device)
+                with _span("render"):
+                    return self._frame_from(plan, res)
+        return self._execute_fallback_recorded(plan, device_ms, device)
 
-    def _execute_fallback(self, plan, device=None) -> pd.DataFrame:
-        """The pandas interpreter over the whole statement; its runner
-        metrics name the route, the path ("fallback_breaker" while the
-        breaker is open, else "fallback"), the reason and, after a
-        device failure, the runner's retries."""
-        out = execute_fallback(plan.stmt, self.catalog, self.config)
+    def _execute_fallback_recorded(self, plan, device_ms: float = 0.0,
+                                   device=None) -> pd.DataFrame:
+        """The pandas interpreter over the whole statement, under a
+        `fallback` span and with its own history record (query_type
+        "fallback"; path "fallback_breaker" while the breaker is open,
+        else "fallback"), as the device routes record theirs. `device_ms`
+        is the wall a failed device attempt already burned (the SLO
+        classifies the latency the user saw); after a device failure the
+        runner's retries ride along. A failure records too, then
+        propagates."""
+        stmt = plan.stmt
+        entry = plan.entry if plan.entry is not None \
+            else self.catalog.maybe(getattr(stmt, "table", None) or "")
+        rows = 0
+        if entry is not None:
+            rows = (entry.segments.num_rows if entry.is_accelerated
+                    else entry.materialized_rows) or 0
         device = dict(device or {})
-        path = "fallback_breaker" if device.pop("fallback_breaker", False) \
-            else "fallback"
-        self.runner.last_metrics = {
-            "route": "fallback", "path": path, "host_copies": 0,
-            "fallback_reason": plan.fallback_reason, **device}
+        m = {"query_type": "fallback", "route": "fallback",
+             "datasource": getattr(stmt, "table", None) or "(derived)",
+             "rows_scanned": rows, "cache_hit": False, "host_copies": 0,
+             "fallback_reason": plan.fallback_reason, **device}
+        if device_ms > 0:
+            m["device_attempt_ms"] = round(device_ms, 3)
+        if self.runner.workload.enabled:
+            try:
+                m["_wl"] = fingerprint_sql(plan.sql or "", stmt,
+                                           m["datasource"])
+            except Exception:  # noqa: BLE001 — profiling never raises
+                pass
+        t0 = time.perf_counter()
+        with _span("fallback") as sp:
+            sp.set(reason=plan.fallback_reason)
+            try:
+                out = execute_fallback(stmt, self.catalog, self.config)
+            except Exception as e:
+                m["failed"] = True
+                m["total_ms"] = (time.perf_counter() - t0) * 1000
+                if _failure_status(e) < 429:
+                    # a client-shaped failure (unsupported SQL -> 400) is
+                    # recorded but never burns the SLO error budget
+                    m["client_error"] = True
+                self.runner.last_metrics = self.runner.record(m)
+                if not in_nested_execution():
+                    _mark_slo_observed(e)   # record() accounted for it
+                raise
+            m["total_ms"] = (time.perf_counter() - t0) * 1000
+            m["rows_returned"] = len(out)
+            self.runner.last_metrics = self.runner.record(m)
         return out
 
     def _try_grouping_sets_union(self, plan):
@@ -421,11 +547,15 @@ class Engine:
             if stmt.order_by else []
         if order_keys is None:
             return None  # union ORDER BY must name output columns
+        t0 = time.perf_counter()
         frames, leg_plans, leg_metrics = [], [], []
         for leg_stmt, consts in legs:
             lp = self.planner.plan_stmt(leg_stmt)
             leg_plans.append(lp)
-            f = self._execute_plan(lp)
+            with nested_execution():
+                # legs are internal: one SLO observation and one `query`
+                # event for the whole union, below
+                f = self._execute_plan(lp)
             leg_metrics.append(self.runner.last_metrics)
             for name, val in consts.items():
                 # absent group keys reattach as np.nan (float64 NULL),
@@ -446,28 +576,38 @@ class Engine:
             out = _sort_order_items(out, order_keys, stmt.order_by)
         lo = stmt.offset
         hi = None if stmt.limit is None else lo + stmt.limit
+        out = out.iloc[lo:hi].reset_index(drop=True)
+        # the union is the served response: one SLO observation and one
+        # `query` event over every leg (the legs' records were nested)
+        if not in_nested_execution():
+            total_ms = (time.perf_counter() - t0) * 1000
+            self.runner.slo.observe(total_ms)
+            self.runner.events.emit(
+                "query",
+                query_id=current_query_id() or self.tracer.new_query_id(),
+                query_type="groupBy", path="grouping_sets",
+                datasource=stmt.table, total_ms=round(total_ms, 3),
+                cache_hit=False)
         self.runner.last_metrics = {
             "route": "grouping_sets",
             "host_copies": sum(m.get("host_copies", 0)
                                for m in leg_metrics),
             "legs": leg_metrics}
-        return out.iloc[lo:hi].reset_index(drop=True)
+        return out
 
     def _run_stmt(self, stmt) -> pd.DataFrame:
         """Execute one parsed statement end to end (device path when
         rewritable, else the fallback) — the planner's subquery executor
         and the fallback's derived-table executor. Does not touch
-        last_plan: the user-visible plan is the outer statement's."""
+        last_plan: the user-visible plan is the outer statement's. Marked
+        nested: its record adds no second SLO observation or `query`
+        event to the outer statement's."""
         with nested_execution():
             out = self._execute_plan(self.planner.plan_stmt(stmt))
         self._nested.append(self.runner.last_metrics)
         return out
 
     # -------------------------------------------------------------- batch
-
-    def _new_query_id(self) -> str:
-        """A fresh query id, in the JAX package's format."""
-        return f"q{self._qid_stamp}-{next(self._qid_seq):06d}"
 
     def sql_batch(self, queries) -> list[pd.DataFrame]:
         """Execute several SQL statements as one submission. Rewritten
@@ -479,70 +619,111 @@ class Engine:
         four `Unsupported*` refusals is served by the single path (and
         so by the fallback interpreter), as is a leg of a shared pass that
         met an open breaker or, with `fallback_on_device_failure` set,
-        failed on the device after its retries (the single path retries
-        it and may fall back; its metrics carry "batch_error"). An
-        admission shed, and any other failure, raises.
+        failed on the device after its retries or its deadline (the
+        single path retries it and may fall back; its metrics carry
+        "batch_error"). An admission shed, and any other failure, raises.
         Results come back in input order; `runner.last_metrics`
         then holds each statement's metrics under "statements"."""
         return self.sql_batch_ids(queries)[0]
 
-    def sql_batch_ids(self, queries):
+    def sql_batch_ids(self, queries, traceparent: str | None = None):
         """sql_batch plus each statement's query id (parallel to the
-        results; "-" for a statement verb). The JAX package splits this
-        into a traced wrapper and `_sql_batch_ids_inner`; the port has no
-        tracing yet (ROADMAP item 14), so it is one method."""
+        results; "-" for a statement verb), the id its records carry. A
+        valid W3C `traceparent` covers every statement of the
+        submission."""
+        tp = parse_traceparent(traceparent)
+        with use_traceparent(tp["traceparent"] if tp else None):
+            return self._sql_batch_ids_inner(queries, tp)
+
+    def _sql_batch_ids_inner(self, queries, tp: dict | None = None):
         queries = list(queries)
         outs: list = [None] * len(queries)
         plans: dict[int, object] = {}
         groups: dict[str, list[int]] = {}
         metrics: list = [{} for _ in queries]
-        qids = [self._new_query_id() for _ in queries]
+        # one query id per statement, minted up front so that the fused
+        # legs' records stay attributable
+        qids = [self.tracer.new_query_id() for _ in queries]
         batch_errors: dict[int, str] = {}
         self._nested = []
-        for i, q in enumerate(queries):
-            verb = _match_verb(q)
-            if verb is not None:
-                outs[i], qids[i] = verb(self), "-"
-                continue
-            plan = self.planner.plan(q)
-            if plan.rewritten and self.cubes.active:
-                # cube-covered statements are served at once and never
-                # join a fused base-table scan they do not need
-                res = try_serve_cube(self, plan)
-                if res is not None:
-                    outs[i] = self._frame_from(plan, res)
-                    metrics[i] = res.metrics
-                    self.last_plan = plan
+        with self.tracer.trace("sql_batch") as root:
+            root.set(statements=len(queries))
+            if tp is not None:
+                root.set(traceparent=tp["traceparent"],
+                         trace_id=tp["trace_id"],
+                         parent_span_id=tp["parent_id"])
+            for i, q in enumerate(queries):
+                verb = _match_verb(q)
+                if verb is not None:
+                    outs[i], qids[i] = verb(self), "-"
                     continue
-            plans[i] = plan
-            if plan.rewritten and \
-                    getattr(plan.stmt, "grouping_sets", None) is None:
-                groups.setdefault(plan.entry.name, []).append(i)
-        for name, idxs in groups.items():
-            if len(idxs) < 2:
-                continue
-            boxed = self.runner._execute_batch_boxed(
-                [plans[i].query for i in idxs],
-                self.catalog.get(name).segments)
-            for i, b in zip(idxs, boxed):
-                if isinstance(b, BaseException):
-                    if not _single_path_serves(b, self.config):
-                        raise b
-                    batch_errors[i] = f"{type(b).__name__}: {b}"
+                with root.span("plan", query_id=qids[i]):
+                    plan = self.planner.plan(q)
+                if plan.rewritten and self.cubes.active:
+                    # cube-covered statements are served at once and
+                    # never join a fused base-table scan they do not need
+                    with use_query_id(qids[i]):
+                        res = try_serve_cube(self, plan)
+                    if res is not None:
+                        outs[i] = self._frame_from(plan, res)
+                        metrics[i] = res.metrics
+                        self.last_plan = plan
+                        continue
+                plans[i] = plan
+                if plan.rewritten and \
+                        getattr(plan.stmt, "grouping_sets", None) is None:
+                    groups.setdefault(plan.entry.name, []).append(i)
+            for name, idxs in groups.items():
+                if len(idxs) < 2:
                     continue
-                outs[i] = self._frame_from(plans[i], b)
-                metrics[i] = b.metrics
-        for i, plan in plans.items():
-            if outs[i] is None:
-                outs[i] = self._execute_plan(plan)
+                try:
+                    boxed = self.runner._execute_batch_boxed(
+                        [plans[i].query for i in idxs],
+                        self.catalog.get(name).segments,
+                        [qids[i] for i in idxs])
+                except QueryShed:
+                    # a shed aborts the whole submission: every statement
+                    # without a result yet is a served failure
+                    self._observe_unserved(outs)
+                    raise
+                for i, b in zip(idxs, boxed):
+                    if isinstance(b, BaseException):
+                        if not _single_path_serves(b, self.config):
+                            self._observe_unserved(outs)
+                            raise b
+                        batch_errors[i] = f"{type(b).__name__}: {b}"
+                        continue
+                    outs[i] = self._frame_from(plans[i], b)
+                    metrics[i] = b.metrics
+            for i, plan in plans.items():
+                if outs[i] is not None:
+                    continue
+                # single statements run inside the sql_batch trace but
+                # record under their own ids
+                with use_query_id(qids[i]):
+                    try:
+                        outs[i] = self._execute_plan(plan)
+                    except Exception as e:
+                        if _failure_status(e) >= 429:
+                            self._observe_unserved(
+                                outs, skip=i if getattr(
+                                    e, "_slo_observed", False) else None)
+                        raise
                 metrics[i] = self.runner.last_metrics
                 if i in batch_errors:
                     metrics[i]["batch_error"] = batch_errors[i]
-        if plans:
-            self.last_plan = plans[max(plans)]
+            if plans:
+                self.last_plan = plans[max(plans)]
         self.runner.last_metrics = {"route": "sql_batch",
                                     "statements": metrics}
         return outs, qids
+
+    def _observe_unserved(self, outs, skip=None):
+        """A submission aborted: count each statement without a result
+        (but `skip`, whose own record counted it) as a failure."""
+        for j, o in enumerate(outs):
+            if o is None and j != skip:
+                self.runner.slo.observe(0.0, failed=True)
 
     def _frame_from(self, plan, res: QueryResult) -> pd.DataFrame:
         cols = {}
@@ -575,7 +756,27 @@ class Engine:
         if not entry.is_accelerated:
             raise ValueError(
                 f"table {query.data_source!r} is not accelerated")
-        return self.runner.execute(query, entry.segments)
+        # the root trace gives the runner's records and the boundary
+        # accounting below one query id. The raw-IR path has no
+        # fallback: a propagating failure is the served response and
+        # counts against the SLO here (the runner's failed record is
+        # interim), with its terminal `query` event
+        with self.tracer.trace("ir", datasource=query.data_source):
+            try:
+                return self.runner.execute(query, entry.segments)
+            except (QueryShed, BreakerOpen):
+                self.runner.slo.observe(0.0, failed=True)
+                raise
+            except Exception:
+                self.runner.slo.observe(0.0, failed=True)
+                self.runner.events.emit(
+                    "query",
+                    query_id=current_query_id()
+                    or self.tracer.new_query_id(),
+                    query_type=getattr(query, "query_type", "?"),
+                    path="raw_ir", datasource=query.data_source,
+                    total_ms=0.0, cache_hit=False, failed=True)
+                raise
 
     def select_page(self, table: str, columns=None, page_size: int = 100,
                     offset: int = 0, descending: bool = False,
@@ -615,6 +816,7 @@ class Engine:
         # WAL and checkpoint store are deleted
         self.ingest.on_drop(name)
         self.cubes.on_table_dropped(name)
+        self.runner.events.emit("drop", table=name)
 
     # -------------------------------------------------------------- cubes
 
@@ -632,6 +834,18 @@ class Engine:
         """DROP DRUID CUBE analog: unregister the cube and its backing
         segment table. Returns False when no such cube exists."""
         return self.cubes.drop(name)
+
+    # ------------------------------------------------------ observability
+
+    @property
+    def history(self):
+        """Per-statement records (the runner's bounded history ring)."""
+        return self.runner.history
+
+    def counters(self) -> dict:
+        """Aggregate counters, kept incrementally at record time: exact
+        after history-ring eviction."""
+        return self.runner.counters()
 
 
 def _single_path_serves(err: BaseException, config) -> bool:
@@ -683,12 +897,6 @@ _COMPACT_RE = re.compile(
     r"^\s*compact\s+druid\s+table\s+(\w+)\s*;?\s*$", re.I)
 _CHECKPOINT_RE = re.compile(
     r"^\s*checkpoint\s+druid\s+table\s+(\w+)\s*;?\s*$", re.I)
-# verbs of subsystems the port does not have yet: (pattern, what, where
-# the ROADMAP queues it)
-_NOT_PORTED = (
-    (_EXPLAIN_ANALYZE_RE, "EXPLAIN ANALYZE (query tracing)",
-     "queue A item 14 (surface and tooling)"),
-)
 
 
 def _match_verb(query: str):
@@ -700,6 +908,10 @@ def _match_verb(query: str):
     if m:
         inner = m.group(1)
         return lambda eng: _run_explain(eng, inner)
+    m = _EXPLAIN_ANALYZE_RE.match(query)
+    if m:
+        inner = m.group(1)
+        return lambda eng: _run_explain_analyze(eng, inner)
     m = _EXEC_RE.match(query)
     if m:
         ds, body = m.group(1), m.group(2).replace("''", "'")
@@ -737,10 +949,6 @@ def _match_verb(query: str):
     if m:
         table = m.group(1)
         return lambda eng: _run_checkpoint(eng, table)
-    for pattern, what, item in _NOT_PORTED:
-        if pattern.match(query):
-            raise NotYetPorted(f"not yet ported: {what}; see ROADMAP.md "
-                               f"{item}")
     return None
 
 
@@ -851,6 +1059,28 @@ def _run_explain(eng: Engine, inner_sql: str) -> pd.DataFrame:
     info = eng.explain(inner_sql)
     lines = json.dumps(info, indent=2, default=str).splitlines()
     return pd.DataFrame({"plan": lines})
+
+
+def _run_explain_analyze(eng: Engine, inner_sql: str) -> pd.DataFrame:
+    """EXPLAIN ANALYZE <sql>: RUNS the statement and returns its span
+    tree as rows (one per span, indented by depth; the attributes as a
+    JSON detail column). Stage spans are wall-clock children of the
+    root, so they sum to within its total."""
+    frame, trace = eng._sql_traced(inner_sql)
+    if trace is None:
+        return pd.DataFrame({
+            "span": ["(no trace: tracing disabled or statement verb)"],
+            "ms": [0.0], "detail": ["{}"]})
+    rows = []
+    for depth, s in trace.walk():
+        detail = dict(s.attrs)
+        if depth == 0:
+            detail["query_id"] = trace.query_id
+            detail["rows_returned"] = len(frame)
+        rows.append({"span": ("  " * depth) + s.name,
+                     "ms": round(s.duration_ms or 0.0, 3),
+                     "detail": json.dumps(detail, default=str)})
+    return pd.DataFrame(rows, columns=["span", "ms", "detail"])
 
 
 def _run_passthrough(eng: Engine, datasource: str, body: str) -> pd.DataFrame:

@@ -28,9 +28,10 @@ recorded on the entry (status "error") and is never retried at the same
 generation; nothing builds it on the host instead. `register_table` /
 `drop_table` cascade through `on_table_registered` / `on_table_dropped`.
 
-The JAX package's metrics registry and events, `sys.cubes` and
-`/debug/cubes` come with ROADMAP queue A item 14: the registry counts
-its rewrite outcomes and builds in `rewrites` and `builds`.
+The cube metrics and events of the JAX package, `sys.cubes` and
+`/debug/cubes` come with the rest of ROADMAP queue A item 14: until
+then the registry counts its rewrite outcomes and builds in `rewrites`
+and `builds`.
 """
 
 from __future__ import annotations

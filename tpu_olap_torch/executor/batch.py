@@ -39,15 +39,21 @@ scan_ms_shared) and route "batch".
 Resilience, as in the JAX package: a batch submission holds ONE
 admission slot (`QueryRunner._execute_batch_boxed`; a shed raises
 QueryShed out of `sql_batch`), the shared pass runs through
-`QueryRunner._guarded_dispatch` (the breaker check, then the retry
-layer), and the "batch-leg" fault site fires in each leg's finalize: a
-leg that fails there is served alone by the single-query path while
-the other legs keep their shared answers.
+`QueryRunner._guarded_dispatch` (the breaker check, the per-query
+deadline with its wedge reprobe, then the retry layer), single legs run
+through `QueryRunner._execute_guarded` (the single-query path's own
+deadline), and the "batch-leg" fault site fires in each leg's finalize:
+a leg that fails there is served alone by the single-query path while
+the other legs keep their shared answers. The shared pass is two-staged
+like a single statement: stage 1 (the legs' stacks, the launch and the
+queued copy) under the enqueue lock, stage 2 (the copy's wait, every
+leg's finalize and assembly) without it.
 
-Not ported here, each with the ROADMAP item that brings it: the guarded
-dispatch's deadline and wedge reprobe and the pipelined mode (item
-12b); mesh legs and the broker merge (item 13); spans, history records,
-SLO observations and events (item 14).
+Observability, as in the JAX package: the fused pass is one
+`shared-scan` span with a `leg` span per statement, single legs run
+under their statement's query id (`use_query_id`), and every leg and
+every deduplicated copy leaves its own history record. Mesh legs and the
+broker merge come with ROADMAP queue A item 13.
 """
 
 from __future__ import annotations
@@ -56,11 +62,12 @@ import json
 import threading
 import time
 
-from tpu_olap_torch.executor.runner import QueryResult, _fetch, _next_pow2
+from tpu_olap_torch.executor.runner import QueryResult, _next_pow2
 from tpu_olap_torch.ir.query import (GroupByQuerySpec, TimeseriesQuerySpec,
                                      TopNQuerySpec)
 from tpu_olap_torch.kernels import fused_reduce, rowgen
 from tpu_olap_torch.kernels.groupby import group_reduce_batch
+from tpu_olap_torch.obs.trace import span as _span, use_query_id
 from tpu_olap_torch.resilience.errors import InternalError
 from tpu_olap_torch.resilience.faults import maybe_inject
 
@@ -79,13 +86,16 @@ def fusable(plan) -> str | None:
     return None
 
 
-def run_batch(runner, queries, table) -> list:
+def run_batch(runner, queries, table, query_ids=None) -> list:
     """Execute N queries against one table, sharing scans where
     possible. Returns a boxed list in input order: a QueryResult per
     success, the exception per failed leg (the caller re-raises or
-    serves the statement another way, per query)."""
+    serves the statement another way, per query). `query_ids`, parallel
+    to `queries`, names each statement's records."""
     queries = list(queries)
     boxed: list = [None] * len(queries)
+    query_ids = list(query_ids) if query_ids is not None \
+        else [None] * len(queries)
 
     # identical queries first: one pass serves every copy
     uniq: dict[str, list[int]] = {}
@@ -96,9 +106,10 @@ def run_batch(runner, queries, table) -> list:
     singles, fused = [], []   # [(query, duplicate indexes, plan)]
     for idxs in uniq.values():
         q = queries[idxs[0]]
-        cached = runner._serve_full_cache(q, table)
+        with use_query_id(query_ids[idxs[0]]):
+            cached = runner._serve_full_cache(q, table)
         if cached is not None:
-            _fan_out(boxed, cached, idxs, queries)
+            _fan_out(runner, boxed, cached, idxs, queries, query_ids)
             continue
         try:
             plan = runner._lower_cached(q, table)
@@ -123,7 +134,10 @@ def run_batch(runner, queries, table) -> list:
 
     for q, idxs, plan in singles:
         try:
-            res = runner._execute(q, table)
+            # the single-query path's deadline and wedge reprobe, under
+            # the statement's own id (its record and `query` event agree)
+            with use_query_id(query_ids[idxs[0]]):
+                res = runner._execute_guarded(q, table)
         except Exception as e:  # noqa: BLE001 — boxed per leg
             for i in idxs:
                 boxed[i] = e
@@ -135,7 +149,8 @@ def run_batch(runner, queries, table) -> list:
             m["batch_legs"] = 1
             m["scan_ms_shared"] = m.get("execute_ms", 0.0)
             m["agg_ms"] = m.get("execute_ms", 0.0)
-        _fan_out(boxed, res, idxs, queries)
+            runner._m_batch.observe(len(idxs))
+        _fan_out(runner, boxed, res, idxs, queries, query_ids)
 
     maxq = max(2, min(int(runner.config.batch_max_queries),
                       rowgen.MAX_LEGS))
@@ -153,16 +168,18 @@ def run_batch(runner, queries, table) -> list:
         for group in groups:
             try:
                 if len(group) == 1:  # a max-size split remainder
-                    results = [runner._execute(group[0][0], table)]
+                    with use_query_id(query_ids[group[0][1][0]]):
+                        results = [runner._execute_guarded(group[0][0],
+                                                           table)]
                 else:
-                    results = _run_fused(runner, table, group)
+                    results = _run_fused(runner, table, group, query_ids)
             except Exception as e:  # noqa: BLE001 — boxed per leg
                 for _, idxs, _ in group:
                     for i in idxs:
                         boxed[i] = e
                 continue
             for (q, idxs, _), res in zip(group, results):
-                _fan_out(boxed, res, idxs, queries)
+                _fan_out(runner, boxed, res, idxs, queries, query_ids)
     return boxed
 
 
@@ -216,22 +233,26 @@ def _window_clusters(fused):
     return clusters, alone
 
 
-def _fan_out(boxed, res, idxs, queries):
+def _fan_out(runner, boxed, res, idxs, queries, query_ids):
     """The first duplicate gets the computed result; the rest share its
-    rows (the pass ran once) under their own QueryResult."""
+    rows (the pass ran once) under their own QueryResult and their own
+    history record, with their own query id."""
     boxed[idxs[0]] = res
     for i in idxs[1:]:
-        boxed[i] = QueryResult(queries[i], res.rows, res.druid,
-                               {**res.metrics, "batch_dedup": True})
+        m = {**res.metrics, "batch_dedup": True}
+        m["query_id"] = query_ids[i] or runner.tracer.new_query_id()
+        runner.record(m)
+        boxed[i] = QueryResult(queries[i], res.rows, res.druid, m)
 
 
 # ------------------------------------------------------------- fused pass
 
 
-def _run_fused(runner, table, group):
+def _run_fused(runner, table, group, query_ids):
     """group: >= 2 unique dense aggregate legs against one table. One
     pass over the union window, one copy back, then finalize and
-    assemble per leg."""
+    assemble per leg, under one `shared-scan` span with a `leg` span
+    per statement."""
     from tpu_olap_torch.executor.results import (agg_specs_by_name,
                                                  eval_post_aggs,
                                                  finalize_aggs,
@@ -240,60 +261,104 @@ def _run_fused(runner, table, group):
     plans = [p for _, _, p in group]
     n_logical = sum(len(idxs) for _, idxs, _ in group)
     batch_id = runner._next_batch_id()
-    metrics_list = [{"route": "batch", "batch_id": batch_id,
-                     "batch_size": n_logical, "batch_legs": len(group)}
-                    for _ in group]
+    runner._m_batch.observe(n_logical)
+    # per-leg workload fingerprints: fused legs attribute to their own
+    # templates (record() consumes `_wl`, the cache store reuses them)
+    leg_fps = [runner.fingerprint(q, table.name) for q, _, _ in group]
+    metrics_list = [{"query_type": q.query_type, "datasource": table.name,
+                     "route": "batch", "batch_id": batch_id,
+                     "batch_size": n_logical, "batch_legs": len(group),
+                     "_wl": fp}
+                    for (q, _, _), fp in zip(group, leg_fps)]
+    for (_, idxs, _), m in zip(group, metrics_list):
+        if query_ids[idxs[0]]:
+            m["query_id"] = query_ids[idxs[0]]
 
     def dispatch():
-        return _shared_pass(runner, table, plans, metrics_list)
+        with runner._pipeline_slot():
+            return _shared_pass(runner, table, plans, metrics_list)
 
     # retry-based recovery as on the single-query path (leg 0's metrics
-    # carry any retry_errors), behind the breaker check
-    partials_list, shared, shared_ms, n_kernel = runner._guarded_dispatch(
-        dispatch, metrics_list[0], table.name)
-    # per-leg attribution by scanned-work weight (columns read x
-    # segments kept x aggregations): an estimate, one launch cannot be
-    # timed per leg
-    w = [max(1, (len(p.columns) + 1) * max(1, len(p.pruned_ids))
-             * (len(p.agg_plans) + 1)) for p in plans]
-    agg_ms = [shared_ms * wi / sum(w) for wi in w]
+    # carry any retry_errors), under the same deadline and wedge guard
+    with _span("shared-scan", batch_id=batch_id, batch_legs=len(group),
+               batch_size=n_logical) as ssp:
+        partials_list, shared, shared_ms, n_kernel = \
+            runner._guarded_dispatch(dispatch, metrics_list[0], table.name)
+        ssp.set(scan_ms_shared=round(shared_ms, 3), fused_batch=n_kernel)
+        # per-leg attribution by scanned-work weight (columns read x
+        # segments kept x aggregations): an estimate, one launch cannot be
+        # timed per leg
+        w = [max(1, (len(p.columns) + 1) * max(1, len(p.pruned_ids))
+                 * (len(p.agg_plans) + 1)) for p in plans]
+        agg_ms = [shared_ms * wi / sum(w) for wi in w]
 
-    results = []
-    for leg_i, ((q, _, plan), m, partials, leg_ms) in enumerate(
-            zip(group, metrics_list, partials_list, agg_ms)):
-        t0 = time.perf_counter()
-        try:
-            # per-leg fault site: a leg that fails here is served alone
-            # by the single-query path, the others keep their answers
-            maybe_inject(runner.config, "batch-leg", leg_i)
-            specs = agg_specs_by_name(q.aggregations)
-            arrays = finalize_aggs(partials, plan.agg_plans, specs,
-                                   theta_raw_fields(q.post_aggregations))
-            eval_post_aggs(arrays, q.post_aggregations)
-            res = runner._assemble_agg(q, plan, arrays)
-        except Exception as e:  # noqa: BLE001 — the leg re-runs alone
-            res = runner._execute(q, table)
-            res.metrics["batch_leg_error"] = f"{type(e).__name__}: {e}"
+        results = []
+        for leg_i, ((q, idxs, plan), m, partials, leg_ms) in enumerate(
+                zip(group, metrics_list, partials_list, agg_ms)):
+            t0 = time.perf_counter()
+            try:
+                with ssp.span("leg") as lsp:
+                    # per-leg fault site: a leg that fails here is served
+                    # alone by the single-query path, the others keep their
+                    # answers
+                    maybe_inject(runner.config, "batch-leg", leg_i)
+                    specs = agg_specs_by_name(q.aggregations)
+                    arrays = finalize_aggs(
+                        partials, plan.agg_plans, specs,
+                        theta_raw_fields(q.post_aggregations))
+                    eval_post_aggs(arrays, q.post_aggregations)
+                    res = runner._assemble_agg(q, plan, arrays)
+                    lsp.set(query_type=q.query_type, agg_ms=round(leg_ms, 3),
+                            duplicates=len(idxs))
+            except Exception as e:  # noqa: BLE001 — the leg re-runs alone
+                with use_query_id(m.get("query_id")):
+                    res = runner._execute_guarded(q, table)
+                res.metrics["batch_leg_error"] = f"{type(e).__name__}: {e}"
+                results.append(res)
+                continue
+            m.update(scan_ms_shared=shared_ms, agg_ms=leg_ms,
+                     execute_ms=shared_ms, fused_batch=n_kernel,
+                     host_copies=shared["host_copies"],
+                     host_bytes=shared["host_bytes"])
+            for k in ("pipelined", "lock_wait_ms", "transfer_ms"):
+                if k in shared:
+                    m[k] = shared[k]
+            m["assemble_ms"] = (time.perf_counter() - t0) * 1000
+            m["total_ms"] = (time.perf_counter() - t_start) * 1000
+            res.metrics = m
+            runner.record(m)
+            runner._store_full_cache(q, table, res, leg_fps[leg_i])
             results.append(res)
-            continue
-        m.update(scan_ms_shared=shared_ms, agg_ms=leg_ms,
-                 execute_ms=shared_ms, fused_batch=n_kernel,
-                 host_copies=shared["host_copies"],
-                 host_bytes=shared["host_bytes"])
-        m["assemble_ms"] = (time.perf_counter() - t0) * 1000
-        m["total_ms"] = (time.perf_counter() - t_start) * 1000
-        res.metrics = m
-        fp = runner._observe(m, q, table)
-        runner._store_full_cache(q, table, res, fp)
-        results.append(res)
-    return results
+        return results
 
 
 def _shared_pass(runner, table, plans, metrics_list):
-    """The device half of a fused group: prepare every leg over the
-    union window, launch, and copy every leg's partials back at once.
-    Returns (per-leg partials, the copy's metrics, its wall in ms, the
-    legs in the multi-leg kernel)."""
+    """The device half of a fused group, in two stages: stage 1 (under
+    the enqueue lock) prepares every leg over the union window, launches
+    and queues the one copy of every leg's partials; stage 2 waits for
+    it. Returns (per-leg partials, the copy's metrics, its wall in ms,
+    the legs in the multi-leg kernel)."""
+    shared = {"host_copies": 0}
+    fired = {}
+
+    def launch():
+        outs = _launch_legs(runner, table, plans, metrics_list, fired)
+        return {f"{i}\0{n}": t for i, out in enumerate(outs)
+                for n, t in out.items()}
+    flat = runner._staged_fetch(launch, shared)
+    partials_list = [{} for _ in plans]
+    for name, a in flat.items():
+        i, n = name.split("\0", 1)
+        partials_list[int(i)][n] = a
+    shared_ms = (time.perf_counter() - fired["t"]) * 1000
+    return partials_list, shared, shared_ms, fired["kernel_legs"]
+
+
+def _launch_legs(runner, table, plans, metrics_list, fired) -> list:
+    """Stage 1 of the shared pass: every leg's env over the union
+    window, the multi-leg kernel for the legs the fused reduce takes and
+    group_reduce_batch for the rest. Returns each leg's partials as
+    device tensors; `fired` gets the launch time and the kernel legs."""
     envs, seg_masks, consts = [], [], []
     valid = None
     # the union of the legs' working sets stays pinned in the ledger
@@ -324,8 +389,9 @@ def _shared_pass(runner, table, plans, metrics_list):
         for m in metrics_list:
             m["segments_window"] = W
 
-    t_fire = time.perf_counter()
+    fired["t"] = time.perf_counter()
     kernel_legs = [i for i, p in enumerate(plans) if p.fused_reason is None]
+    fired["kernel_legs"] = len(kernel_legs)
     other_legs = [i for i, p in enumerate(plans) if p.fused_reason is not None]
     outs: list = [None] * len(plans)
     if kernel_legs:
@@ -349,18 +415,7 @@ def _shared_pass(runner, table, plans, metrics_list):
         for i, out in zip(other_legs, group_reduce_batch(
                 legs, [consts[i] for i in other_legs])):
             outs[i] = out
-
-    # every leg's partials in ONE device-to-host copy
-    shared = {"host_copies": 0}
-    runner._inject("host-transfer")
-    flat = _fetch({f"{i}\0{n}": t for i, out in enumerate(outs)
-                   for n, t in out.items()}, shared)
-    partials_list = [{} for _ in plans]
-    for name, a in flat.items():
-        i, n = name.split("\0", 1)
-        partials_list[int(i)][n] = a
-    shared_ms = (time.perf_counter() - t_fire) * 1000
-    return partials_list, shared, shared_ms, len(kernel_legs)
+    return outs
 
 
 def _union_window(plans, n_segments):

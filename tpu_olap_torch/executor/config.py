@@ -223,9 +223,46 @@ class EngineConfig:
     # breaker_open_cooldown_s and closes it on success. <= 0 disables it.
     breaker_failure_threshold: int = 5
     breaker_open_cooldown_s: float = 5.0
-    # The JAX package's query_deadline_s and pipeline_depth come with
-    # ROADMAP queue A item 12b and degrade_shards_on_retry with item 13;
-    # until then passing one raises TypeError.
+    # per-query deadline (seconds) on the device work of a statement: the
+    # work runs on a watchdog thread that the caller abandons on expiry
+    # with QueryDeadlineExceeded (served by the fallback when
+    # fallback_on_device_failure is set). An abandoned CUDA kernel keeps
+    # running on the stream until it ends; the device is marked wedged
+    # and re-probed before it is trusted again. None = no deadline.
+    query_deadline_s: float | None = None
+    # pipelined two-stage execution: stage 1 (enqueue) holds
+    # dispatch_lock while the kernels launch and the result's copy into
+    # pinned host memory is queued; stage 2 (transfer, finalize,
+    # assemble) waits on the copy's CUDA event without the lock, so it
+    # overlaps other statements' enqueues. The value bounds how many
+    # statements sit between the two stages at once (graph admission);
+    # 0 = serialized (dispatch_lock held across the whole statement).
+    pipeline_depth: int = 4
+    # degrade_shards_on_retry and the JAX package's profile_dir,
+    # telemetry_* and sentinel_* fields come with ROADMAP queue A items
+    # 13 and 14; until then passing one raises TypeError.
+
+    # observability (obs.trace, obs.metrics, obs.events, obs.slo), with
+    # the JAX package's defaults: per-statement span trees (a ring of
+    # trace_history_limit, and traces slower than slow_query_ms in a slow
+    # ring of slow_log_limit), the history ring of history_limit records
+    # (Engine.counters stays exact past eviction), the structured event
+    # log (a ring, plus a JSON-lines file at event_log_path rotated past
+    # event_log_max_bytes), and the latency SLO: statements within
+    # slo_latency_ms count good, and the burn rate is the bad fraction
+    # over slo_window_s divided by the error budget (1 - slo_target).
+    tracing_enabled: bool = True
+    trace_history_limit: int = 128
+    slow_query_ms: float = 250.0
+    slow_log_limit: int = 64
+    history_limit: int = 1024
+    event_log_limit: int = 2048
+    event_log_path: str | None = None
+    event_log_max_bytes: int = 64 * 1024 * 1024
+    event_log_rotate_keep: int = 3
+    slo_latency_ms: float = 500.0
+    slo_target: float = 0.99
+    slo_window_s: float = 3600.0
 
     # workload profiler (obs.workload): every completed statement folds
     # into bounded per-template rolling stats, the demand signal of the

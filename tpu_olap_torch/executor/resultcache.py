@@ -46,9 +46,10 @@ a stale-generation entry can never be SERVED even before it is purged.
 CACHE) purge eagerly so the byte gauges drop immediately.
 
 Observability: hit/miss/bypass/evict counts per tier in `stats` and
-`snapshot()`. The metrics registry and events (`metrics`, `events`:
-None until ROADMAP queue A item 14 ports obs/metrics and obs/events),
-the `/debug/cache` endpoint and `sys.caches` come with item 14.
+`snapshot()`. The runner does not pass its metrics registry and event
+log (`metrics`, `events`) yet: the caches' metrics and events, the
+`/debug/cache` endpoint and `sys.caches` come with the rest of ROADMAP
+queue A item 14.
 """
 
 from __future__ import annotations

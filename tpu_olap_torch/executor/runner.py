@@ -3,7 +3,8 @@
 The analog of the reference's DruidRDD.compute + broker round-trip
 (SURVEY.md §4.2) collapsed into an in-process call: lower -> device
 dispatch over the resident column stacks -> ONE device-to-host copy ->
-host finalize and assembly.
+host finalize and assembly. Every statement leaves one history record
+(`record`), as in the JAX package.
 
 Three routes on one device, as in the JAX package:
   - packed (every dense aggregate query): the kernel, then finalize,
@@ -23,8 +24,21 @@ device (one copy) and runs a GroupBy per numeric dimension;
 TimeBoundary and SegmentMetadata read the table's manifest.
 Batches of aggregate queries share one pass (executor.batch):
 `execute_batch`, and the coalescer behind EngineConfig.batch_window_ms
-that gathers concurrent `execute` callers into one batch. Device work
-runs under `dispatch_lock`; coalesced callers wait outside it.
+that gathers concurrent `execute` callers into one batch.
+
+Two stages on one CUDA stream (EngineConfig.pipeline_depth > 0, the
+default). Stage 1 (`enqueue`, under `dispatch_lock`) prepares the
+resident stacks, launches the route's kernels, queues the route's one
+copy into pinned host memory (`non_blocking=True`), records a CUDA
+event and pins the output's bytes in the HBM ledger (`_enqueue_fetch`).
+Stage 2 (`transfer`, `finalize`, `assemble`) runs without the lock: it
+waits on that event (`wait_event`), unpins, views the pinned bytes as
+numpy and finishes the statement (`_complete`), overlapping other
+statements' enqueues. Every launch and copy stays on the device's
+current stream, so a kernel that hangs holds back everything queued
+behind it, the device probe included. On the CPU stage 2 has nothing to
+wait for. pipeline_depth=0 holds `dispatch_lock` across the whole
+statement (serialized mode).
 
 The semantic result cache (executor.resultcache) sits in front: tier 2
 serves a repeated aggregate's whole result before the lock, with no
@@ -32,33 +46,41 @@ launch and no copy; tier 1 serves the segments a moving window has seen
 and computes the rest in one launch of the segment-extended fused reduce
 (`_run_agg_segcached`). Every table's resident stacks are accounted in
 one HbmLedger under `hbm_budget_bytes`. `compute_partials` is the cube
-materializer's entry point, and `workload` profiles every completed
-statement for the cube advisor.
+materializer's entry point.
 
 Resilience, as in the JAX package: `execute` checks the full-result
-cache, then the circuit breaker, the coalescer, an admission slot and
-`dispatch_lock`, in that order. Every device dispatch runs through
+cache, then the circuit breaker, the coalescer and an admission slot
+(with the deadline as its budget). Every device dispatch runs through
 `_dispatch`: the "dispatch" fault site, up to `dispatch_retries + 1`
 attempts with the table's resident state purged between them, the
 retried errors in the metrics (`retries`, `retry_errors`), and one
-breaker failure when the attempts run out. The last error then
-propagates (the engine serves the statement from the fallback
-interpreter when `fallback_on_device_failure` is set). The "host-transfer"
-site fires before each device-to-host copy and rides the same
-accounting. The breaker's healer probes the device on its own thread
-(`_probe_device`: a small reduction and a stream synchronize on the
-card) and on success evicts the resident datasets, keeping the compiled
-kernels. `stages`, the StageScheduler, runs the background graphs
-(compactor, WAL flush, cube maintainer). The per-query deadline with
-its wedge recovery and the pipelined two-stage mode come with ROADMAP
-queue A item 12b, the mesh with item 13.
+breaker failure when the attempts run out. With `query_deadline_s` set,
+the statement's work runs on a watchdog thread (`_join_abandoning`):
+past the deadline the caller raises QueryDeadlineExceeded, the device
+is marked wedged, and the next statement re-probes it (`_probe_device`:
+a small reduction and a stream synchronize, queued behind whatever the
+stream still runs) before trusting it; an abandoned kernel keeps
+running on the stream until it ends. A successful probe evicts the
+resident stacks but keeps the compiled kernels. The breaker's healer
+probes the same way. `stages`, the StageScheduler, runs the stage
+sections and the background graphs (compactor, WAL flush, cube
+maintainer).
+
+Observability, as in the JAX package (tpu_olap_torch.obs): `record` is
+the one gate every statement's metrics pass through — the history ring,
+the incremental counters, the metrics registry, the SLO tracker, the
+event log and the workload profiler. Spans open on the active trace.
+The mesh (per-GPU placement, the per-chip transfer fan-out, the broker
+merge) comes with ROADMAP queue A item 13; compile metrics, the cache
+and memory gauges and the telemetry sampler with the rest of item 14.
 """
 
 from __future__ import annotations
 
-import contextlib
+import itertools
 import threading
 import time
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -88,6 +110,13 @@ from tpu_olap_torch.ir.query import (GroupByQuerySpec, ScanQuerySpec,
                                      SegmentMetadataQuerySpec,
                                      SelectQuerySpec, TimeBoundaryQuerySpec,
                                      TimeseriesQuerySpec, TopNQuerySpec)
+from tpu_olap_torch.obs.events import EventLog
+from tpu_olap_torch.obs.metrics import QUEUE_WAIT_BUCKETS_MS, MetricsRegistry
+from tpu_olap_torch.obs.slo import SloTracker
+from tpu_olap_torch.obs.trace import (Tracer, current_query_id,
+                                      current_traceparent,
+                                      in_nested_execution, short_str,
+                                      span as _span)
 from tpu_olap_torch.obs.workload import (WorkloadProfiler, fingerprint_ir,
                                          in_introspection)
 from tpu_olap_torch.resilience.admission import AdmissionController
@@ -109,6 +138,72 @@ class QueryResult:
         return pd.DataFrame(self.rows)
 
 
+class QueryDeadlineExceeded(QueryError):
+    """Raised when a statement exceeds EngineConfig.query_deadline_s. The
+    in-process analog of the reference's task-kill -> HTTP query abort
+    (SURVEY.md §3.5): the caller falls back (or raises); the abandoned
+    watchdog thread finishes, and is discarded, in the background, since
+    a kernel running on the card cannot be interrupted. Part of the
+    resilience error taxonomy: HTTP surfaces map it to 504 when no
+    fallback answered."""
+
+    code = "deadline_exceeded"
+    retriable = True
+    http_status = 504
+
+
+class HistoryRing(list):
+    """Bounded per-statement history (EngineConfig.history_limit): an
+    append evicts oldest-first past maxlen. A list subclass on purpose —
+    callers slice and len() it freely. Aggregate counters never re-sum
+    it; QueryRunner.record keeps them incrementally. Appends are locked:
+    pipelined execution completes statements on concurrent stage-2
+    threads, and two racing evictions must not each delete a
+    survivor."""
+
+    def __init__(self, maxlen: int | None = None):
+        super().__init__()
+        self.maxlen = maxlen if maxlen is None else max(1, int(maxlen))
+        self._mu = threading.Lock()
+
+    def append(self, item):
+        with self._mu:
+            super().append(item)
+            if self.maxlen is not None:
+                while len(self) > self.maxlen:
+                    del self[0]
+
+
+# core metric keys every completed statement's record carries, whatever
+# route served it — the JAX package's dashboard schema
+CORE_METRIC_DEFAULTS = (
+    ("total_ms", 0.0), ("rows_scanned", 0), ("segments_scanned", 0),
+    ("cache_hit", False), ("query_type", "?"), ("datasource", "?"),
+    ("pipelined", False),
+)
+
+
+def sanitize_metric_value(v, _depth=0):
+    """Exception-carrying (or otherwise non-JSON) metric values -> short
+    strings at record time, so that no consumer of a record meets a raw
+    exception object. JSON-native scalars pass through untouched."""
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return short_str(v) if isinstance(v, str) and len(v) > 300 else v
+    if _depth < 4:
+        if isinstance(v, (list, tuple)):
+            return [sanitize_metric_value(x, _depth + 1) for x in v]
+        if isinstance(v, dict):
+            return {str(k): sanitize_metric_value(x, _depth + 1)
+                    for k, x in v.items()}
+    if isinstance(v, np.bool_):
+        return bool(v)
+    if isinstance(v, np.integer):
+        return int(v)
+    if isinstance(v, np.floating):
+        return float(v)
+    return short_str(v)
+
+
 def resolve_device(name: str) -> torch.device:
     """The device the engine runs on; "cuda" without a card raises —
     the engine never carries on on the CPU in its place."""
@@ -122,24 +217,17 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-_nesting = threading.local()
-
-
-@contextlib.contextmanager
-def nested_execution():
-    """Mark the statements run inside this block, on this thread, as
-    nested in an outer one (inlined subqueries, derived bodies): they
-    dispatch directly and never enter the coalescer, whose leader would
-    run them on its own thread outside the outer statement."""
-    _nesting.depth = getattr(_nesting, "depth", 0) + 1
-    try:
-        yield
-    finally:
-        _nesting.depth -= 1
-
-
-def in_nested_execution() -> bool:
-    return getattr(_nesting, "depth", 0) > 0
+@dataclass
+class _Transfer:
+    """A route's one device-to-host copy between the two stages: the
+    host tensor it lands in (pinned on the card), the CUDA event recorded
+    after it (None on the CPU), the ledger pin of the output's bytes, and
+    the (name, dtype, shape) layout of a dict's concatenated bytes (None
+    for a single tensor)."""
+    host: torch.Tensor
+    event: object = None
+    pin: object = None
+    layout: list | None = None
 
 
 class QueryRunner:
@@ -147,39 +235,107 @@ class QueryRunner:
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device)
         # serializes device dispatch and the caches below; the engine's
-        # device_lock is this object. Coalesced callers wait outside it
-        # and the batch leader takes it (executor.batch).
+        # device_lock is this object. Pipelined mode holds it for stage 1
+        # only (_enqueue_lock), serialized mode across the statement.
+        # Coalesced callers wait outside it.
         self.dispatch_lock = threading.RLock()
+        # lowering runs outside dispatch_lock in pipelined mode: the plan
+        # cache has its own mutex
+        self._cache_lock = threading.Lock()
         self._datasets: dict[str, DeviceDataset] = {}
         self._plan_cache: dict = {}
         # last observed group count per query template and route: sizes
         # the next run's packed / sparse cap
         self._cap_hints: dict = {}
         self._tls = threading.local()   # per-thread last_metrics
+        self._inflight_seq = itertools.count(1)  # ledger pin keys
+        self._transfer_count = 0        # live stage-2 transfers (gauge)
         self._coalescer = None
         self._batch_seq = 0
+        self._wedged = False   # a deadline expired: re-probe before trusting
         # one ledger over every table's resident stacks; per-chip
         # attribution comes with the multi-GPU port (item 13)
         self._ledger = HbmLedger(self.config.hbm_budget_bytes)
+        # observability (tpu_olap_torch.obs), all fed through record()
+        self.history = HistoryRing(self.config.history_limit)
+        self.tracer = Tracer(enabled=self.config.tracing_enabled,
+                             ring_limit=self.config.trace_history_limit,
+                             slow_ms=self.config.slow_query_ms,
+                             slow_limit=self.config.slow_log_limit)
+        self.metrics = m = MetricsRegistry()
+        self.events = EventLog(limit=self.config.event_log_limit,
+                               path=self.config.event_log_path,
+                               max_bytes=self.config.event_log_max_bytes,
+                               rotate_keep=self.config.event_log_rotate_keep)
+        self.slo = SloTracker(self.config.slo_latency_ms,
+                              self.config.slo_target,
+                              self.config.slo_window_s, metrics=m)
+        self._totals_lock = threading.Lock()
+        self._totals = {"queries": 0, "rows_scanned": 0,
+                        "segments_scanned": 0, "segments_pruned": 0,
+                        "cache_hits": 0, "total_ms": 0.0}
+        self._by_query_type: dict = {}
+        self._m_queries = m.counter(
+            "queries_total", "Queries completed, by type and path.",
+            ("query_type", "path"))
+        self._m_latency = m.histogram(
+            "query_latency_ms", "End-to-end query latency (ms).",
+            ("query_type", "path"))
+        self._m_rows = m.counter(
+            "rows_scanned_total", "Rows scanned across all queries.")
+        self._m_segments = m.counter(
+            "segments_scanned_total",
+            "Segments scanned across all queries.")
+        self._m_retries = m.counter(
+            "dispatch_retries_total", "Device dispatch retries.")
+        self._m_deadline = m.counter(
+            "deadline_exceeded_total",
+            "Queries killed by query_deadline_s.")
+        self._m_hbm_bytes = m.gauge(
+            "hbm_bytes_in_use", "HBM ledger bytes resident.")
+        self._m_hbm_evict = m.counter(
+            "hbm_evictions_total", "HBM ledger column evictions.")
+        self._m_batch = m.histogram(
+            "batch_size", "Logical queries per shared-scan batch.",
+            buckets=(1, 2, 4, 8, 16, 32, 64))
+        self._m_degraded = m.counter(
+            "degraded_queries_total",
+            "Queries served by the interpreter while the breaker was "
+            "open (path=fallback_breaker).")
+        self._m_lock_wait = m.histogram(
+            "dispatch_lock_wait_ms",
+            "Wait to acquire the dispatch lock (stage-1 enqueue in "
+            "pipelined mode; whole-query hold in serialized mode).",
+            buckets=QUEUE_WAIT_BUCKETS_MS)
+        self._m_transfers = m.gauge(
+            "inflight_transfers",
+            "Device->host result transfers currently in flight "
+            "(stage-2 completions).")
         self.result_cache = ResultCache(self.config)
         self.workload = WorkloadProfiler(
             max_templates=self.config.workload_max_templates,
             latency_window=self.config.workload_latency_window,
-            enabled=self.config.workload_profile_enabled)
-        # bounded admission in front of dispatch_lock, and the device
-        # circuit breaker whose healer probes through _healer_probe
+            enabled=self.config.workload_profile_enabled, metrics=m)
+        # bounded admission in front of dispatch_lock (and the pipeline's
+        # graph admission), and the device circuit breaker whose healer
+        # probes through _healer_probe
         self.admission = AdmissionController(
             self.config.max_inflight_dispatches,
-            self.config.admission_queue_limit)
+            self.config.admission_queue_limit, metrics=m,
+            events=self.events,
+            pipeline_depth=self.config.pipeline_depth)
         self.breaker = CircuitBreaker(
             self.config.breaker_failure_threshold,
             self.config.breaker_open_cooldown_s,
-            probe=self._healer_probe)
+            probe=self._healer_probe, metrics=m, events=self.events)
         self._attempt_local = threading.local()  # the dispatch attempt
-        # the stage scheduler: the background periodic graphs (compactor,
-        # WAL flush, cube maintainer) run on its background pool
-        self.stages = StageScheduler(self.config, admission=self.admission,
-                                     inject=self._inject)
+        # the stage scheduler: the query path's stage sections and the
+        # background periodic graphs (compactor, WAL flush, cube
+        # maintainer)
+        self.stages = StageScheduler(self.config, metrics=m,
+                                     admission=self.admission,
+                                     inject=self._inject,
+                                     events=self.events)
         if (self.config.batch_window_ms or 0) > 0:
             self.set_batch_window(self.config.batch_window_ms)
 
@@ -193,12 +349,176 @@ class QueryRunner:
 
     @property
     def last_metrics(self) -> dict:
-        """The metrics of the last query this thread ran."""
+        """The metrics of the last statement this thread ran: pipelined
+        execution runs several statements' stages at once, so each
+        thread stamps its own."""
         return getattr(self._tls, "metrics", {})
 
     @last_metrics.setter
     def last_metrics(self, metrics: dict):
         self._tls.metrics = metrics
+
+    # --------------------------------------------- pipelined execution
+
+    @property
+    def _pipelined(self) -> bool:
+        """Pipelined mode: dispatch_lock held only for stage-1 enqueue
+        (EngineConfig.pipeline_depth > 0); 0 restores the serialized
+        whole-statement hold."""
+        return (self.config.pipeline_depth or 0) > 0
+
+    def _pipeline_slot(self):
+        """Bound one dispatch's enqueue->complete region (the admission
+        controller's pipeline slot). No-op when serialized."""
+        if not self._pipelined:
+            return nullcontext()
+        return self.admission.pipeline_slot(self.config.query_deadline_s)
+
+    @contextmanager
+    def _enqueue_lock(self, metrics: dict | None = None):
+        """The enqueue stage's critical section (the width-1 stage pool
+        and dispatch_lock). Pipelined mode: acquire dispatch_lock, bounded
+        by the deadline so that a watchdog thread blocked here behind a
+        stranded holder eventually gives up, time the wait into
+        dispatch_lock_wait_ms and stamp the record. Serialized mode: the
+        caller already holds the lock across the whole statement
+        (possibly on the watchdog's parent thread), so only the stage
+        accounting runs."""
+        with self.stages.stage("enqueue", metrics):
+            if not self._pipelined:
+                yield
+                return
+            deadline = self.config.query_deadline_s
+            t0 = time.perf_counter()
+            ok = self.dispatch_lock.acquire(timeout=deadline) \
+                if deadline is not None else self.dispatch_lock.acquire()
+            waited = (time.perf_counter() - t0) * 1000
+            self._m_lock_wait.observe(waited)
+            if metrics is not None:
+                metrics["pipelined"] = True
+                metrics["lock_wait_ms"] = round(
+                    metrics.get("lock_wait_ms", 0.0) + waited, 3)
+            if not ok:
+                raise QueryDeadlineExceeded(
+                    f"dispatch lock unavailable within the {deadline}s "
+                    "deadline (a dispatch is wedged holding it)") from None
+            try:
+                yield
+            finally:
+                self.dispatch_lock.release()
+
+    @contextmanager
+    def _timed_dispatch_lock(self):
+        """Serialized mode's whole-statement hold, its wait observed into
+        the same dispatch_lock_wait_ms histogram as the pipelined
+        sections, so that a comparison reads contention from one
+        series."""
+        t0 = time.perf_counter()
+        with self.dispatch_lock:
+            self._m_lock_wait.observe((time.perf_counter() - t0) * 1000)
+            yield
+
+    def _note_transfer(self, delta: int):
+        with self._totals_lock:
+            self._transfer_count += delta
+            self._m_transfers.set(self._transfer_count)
+
+    def _pin_inflight(self, nbytes: int):
+        """Account a just-enqueued copy's device output in the HBM ledger
+        until stage 2 has it (counted in the budget, never evictable).
+        Returns the pin key for _complete."""
+        key = ("__inflight__", next(self._inflight_seq))
+        self._ledger.pin_inflight(key, nbytes)
+        return key
+
+    def _enqueue_fetch(self, out, metrics: dict) -> _Transfer:
+        """Stage 1's end: queue the route's one device-to-host copy.
+        `out` is a tensor (copied flat) or {name: tensor} (every tensor's
+        bytes concatenated into one uint8 buffer). The output's bytes are
+        pinned in the ledger until stage 2. On the card the copy goes,
+        non-blocking, into a pinned host tensor from torch's caching host
+        allocator, and a CUDA event is recorded after it on the current
+        stream; nothing waits here (on the CPU the buffer is the host
+        tensor). Counted in metrics["host_copies"] and ["host_bytes"]."""
+        layout = None
+        if isinstance(out, dict):
+            if not out:
+                return _Transfer(torch.empty(0, dtype=torch.uint8),
+                                 layout=[])
+            names = list(out)
+            # fresh dense copies: a column view such as sums[:, 0] keeps
+            # its stride even where torch calls it contiguous (size-1
+            # dims), and viewing bytes needs stride 1
+            ts = [out[n].new_empty(out[n].shape).copy_(out[n])
+                  for n in names]
+            layout = [(n, t.dtype, tuple(t.shape)) for n, t in
+                      zip(names, ts)]
+            buf = torch.cat([t.reshape(-1).view(torch.uint8) for t in ts])
+        else:
+            buf = out.reshape(-1)
+        nbytes = buf.numel() * buf.element_size()
+        metrics["host_copies"] = metrics.get("host_copies", 0) + 1
+        metrics["host_bytes"] = metrics.get("host_bytes", 0) + nbytes
+        if buf.device.type != "cuda":
+            return _Transfer(buf, None, self._pin_inflight(nbytes), layout)
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        host.copy_(buf, non_blocking=True)
+        event = torch.cuda.Event(blocking=True)
+        event.record()
+        return _Transfer(host, event, self._pin_inflight(nbytes), layout)
+
+    def _complete(self, tr: _Transfer, metrics: dict):
+        """Stage 2's start, without dispatch_lock: the "transfer" stage
+        section and the "host-transfer" fault site, the wait on the
+        copy's event (`wait_event`), the ledger unpin, and the pinned
+        bytes viewed as numpy (a {name: array} dict for a dict fetch).
+        The arrays keep the pinned tensor alive, so that the host
+        allocator does not hand its block to another copy while they are
+        read."""
+        t0 = time.perf_counter()
+        self._note_transfer(1)
+        try:
+            with self.stages.stage("transfer", metrics):
+                self._inject("host-transfer")
+                if tr.event is not None:
+                    wait_event(tr.event)
+        finally:
+            self._note_transfer(-1)
+            if tr.pin is not None:
+                self._ledger.unpin_inflight(tr.pin)
+                tr.pin = None
+        metrics["transfer_ms"] = round(
+            metrics.get("transfer_ms", 0.0)
+            + (time.perf_counter() - t0) * 1000, 3)
+        host = tr.host.numpy()
+        if tr.layout is None:
+            return host
+        res, off = {}, 0
+        for name, dtype, shape in tr.layout:
+            nb = int(np.prod(shape, dtype=np.int64)) \
+                * torch.empty(0, dtype=dtype).element_size()
+            res[name] = host[off:off + nb].view(_np_dtype(dtype)) \
+                .reshape(shape)
+            off += nb
+        return res
+
+    def _staged_fetch(self, launch, metrics: dict, dispatch_span=True):
+        """One two-stage round: stage 1 (`launch()` under the enqueue
+        lock, inside a `dispatch` span unless the caller opened one, then
+        the queued copy) and stage 2 (`_complete`, inside a
+        `host-transfer` span). A failed stage 2 still releases the
+        pin."""
+        with self._enqueue_lock(metrics):
+            with _span("dispatch") if dispatch_span else nullcontext():
+                tr = self._enqueue_fetch(launch(), metrics)
+        try:
+            with _span("host-transfer"):
+                return self._complete(tr, metrics)
+        finally:
+            if tr.pin is not None:
+                self._ledger.unpin_inflight(tr.pin)
+
+    # ------------------------------------------------------ batch, API
 
     def set_batch_window(self, window_ms: float | None):
         """Turn the shared-scan coalescer on (window_ms > 0) or off:
@@ -221,13 +541,16 @@ class QueryRunner:
                 raise b
         return boxed
 
-    def _execute_batch_boxed(self, queries, table) -> list:
+    def _execute_batch_boxed(self, queries, table, query_ids=None) -> list:
         from tpu_olap_torch.executor.batch import run_batch
         # one admission slot per batch submission: the shared pass is one
-        # device occupancy however many statements ride it
-        with self.admission.slot(None):
-            with self.dispatch_lock:
-                return run_batch(self, queries, table)
+        # device occupancy however many statements ride it. Pipelined
+        # mode: no outer lock, run_batch's device sections take it.
+        with self.admission.slot(self.config.query_deadline_s):
+            if self._pipelined:
+                return run_batch(self, queries, table, query_ids)
+            with self._timed_dispatch_lock():
+                return run_batch(self, queries, table, query_ids)
 
     def _next_batch_id(self) -> int:
         self._batch_seq += 1
@@ -238,9 +561,12 @@ class QueryRunner:
         # launches nothing and copies nothing, and keeps serving through
         # an open breaker
         res = self._serve_full_cache(query, table)
-        if res is not None:
-            self.last_metrics = res.metrics
-            return res
+        if res is None:
+            res = self._execute_uncached(query, table)
+        self.last_metrics = res.metrics
+        return res
+
+    def _execute_uncached(self, query, table) -> QueryResult:
         # the breaker next: while open, fail in microseconds (the engine
         # serves fallback-capable statements from the interpreter)
         # instead of queueing work onto a sick device
@@ -249,14 +575,76 @@ class QueryRunner:
             from tpu_olap_torch.executor.batch import AGG_QUERY_TYPES
             if isinstance(query, AGG_QUERY_TYPES):
                 # waits outside dispatch_lock so that concurrent callers
-                # can coalesce; the batch leader takes it
-                res = self._coalescer.submit(query, table)
-                self.last_metrics = res.metrics
+                # can coalesce; the batch leader dispatches
+                with _span("coalesce") as sp:
+                    res = self._coalescer.submit(query, table)
+                    sp.set(batch_id=res.metrics.get("batch_id"),
+                           batch_size=res.metrics.get("batch_size"))
                 return res
-        with self.admission.slot(None):
-            with self.dispatch_lock:
-                self.breaker.check()
-                return self._execute(query, table)
+        with self.admission.slot(self.config.query_deadline_s):
+            if self._pipelined:
+                return self._execute_guarded(query, table)
+            with self._timed_dispatch_lock():
+                return self._execute_guarded(query, table)
+
+    def _execute_guarded(self, query, table) -> QueryResult:
+        """Breaker and deadline/wedge guard around _execute. Serialized
+        mode: the caller holds dispatch_lock across this whole call.
+        Pipelined mode: no outer lock; the enqueue sections take it."""
+        self.breaker.check()
+        deadline = self.config.query_deadline_s
+        if deadline is None:
+            return self._execute(query, table)
+        if self._wedged:
+            # a previous statement timed out and was abandoned: before
+            # trusting the device again, prove it answers a trivial
+            # computation; still stuck -> fail fast, so that the engine
+            # keeps falling back without stacking another deadline wait
+            self._reprobe_device(deadline)
+        abandoned = threading.Event()
+        return self._join_abandoning(
+            lambda: self._execute(query, table, abandoned), deadline,
+            {"query_type": query.query_type, "datasource": table.name},
+            on_timeout=abandoned.set)  # its history record is discarded
+
+    def _join_abandoning(self, work, deadline: float, rec: dict,
+                         on_timeout=None, name="tpu-olap-dispatch"):
+        """Run `work` on a fresh daemon thread, abandoning it on expiry:
+        mark the device wedged, record `rec` (stamped with the deadline)
+        and raise QueryDeadlineExceeded. The one deadline join shared by
+        the single-query path and the batch's shared pass
+        (_guarded_dispatch); `on_timeout` runs before the wedge is set.
+        The worker runs inside a contextvars snapshot, so the caller's
+        trace and nesting reach it; its last_metrics come back to the
+        caller's thread."""
+        import contextvars
+        box: dict = {}
+        ctx = contextvars.copy_context()
+
+        def run():
+            try:
+                box["res"] = ctx.run(work)
+            except BaseException as e:  # noqa: BLE001 - relayed to caller
+                box["err"] = e
+            box["metrics"] = getattr(self._tls, "metrics", None)
+
+        t = threading.Thread(target=run, daemon=True, name=name)
+        t.start()
+        t.join(deadline)
+        if t.is_alive():
+            if on_timeout is not None:
+                on_timeout()
+            self._wedged = True
+            self.breaker.record_failure("deadline")
+            self.record({**rec, "deadline_exceeded": True,
+                         "total_ms": deadline * 1000})
+            raise QueryDeadlineExceeded(
+                f"query exceeded deadline of {deadline}s") from None
+        if box.get("metrics") is not None:
+            self.last_metrics = box["metrics"]
+        if "err" in box:
+            raise box["err"]
+        return box["res"]
 
     def _dispatch(self, call, metrics: dict, table_name: str):
         """Run one device dispatch with retry-based recovery: on failure,
@@ -265,8 +653,9 @@ class QueryRunner:
         `dispatch_retries + 1` attempts. Every retried error is kept in
         metrics["retry_errors"]; exhausting the attempts counts one
         breaker failure and re-raises. Structural refusals
-        (UnsupportedAggregation) and taxonomy errors (QueryError) pass
-        through untouched: retrying cannot change them."""
+        (UnsupportedAggregation) and taxonomy errors (QueryError: a lock
+        unavailable within the deadline, a pipeline shed) pass through
+        untouched: retrying cannot change them."""
         attempts = max(1, self.config.dispatch_retries + 1)
         for attempt in range(attempts):
             try:
@@ -287,37 +676,45 @@ class QueryRunner:
                     self.breaker.record_failure()
                     raise
                 metrics["retries"] = attempt + 1
-                with self.dispatch_lock:
+                # pipelined mode: nothing outer holds dispatch_lock, and
+                # the purge must not race another statement's stage 1.
+                # Serialized mode: the caller holds it — or, on a
+                # deadline's watchdog thread, the caller's thread does,
+                # so taking it here would wait out the deadline
+                purge_lock = self.dispatch_lock if self._pipelined \
+                    else nullcontext()
+                with purge_lock:
                     self.clear_cache(table_name)
             finally:
                 self._attempt_local.value = 0
 
     def _guarded_dispatch(self, call, metrics: dict, table_name: str):
-        """_dispatch behind a breaker check: the batch executor's shared
-        pass. The JAX package also runs it under the per-query deadline
-        with its wedge reprobe; that branch comes with ROADMAP queue A
-        item 12b."""
+        """_dispatch under the single-query path's deadline and wedge
+        guard: with query_deadline_s set, the batch's shared pass runs on
+        a watchdog thread that is abandoned on expiry
+        (QueryDeadlineExceeded for every leg), and a wedged device is
+        re-probed before it is trusted again."""
         self.breaker.check()
-        return self._dispatch(call, metrics, table_name)
-
-    def _copy(self, buf: torch.Tensor, metrics: dict) -> np.ndarray:
-        """to_host behind the "host-transfer" fault site."""
-        self._inject("host-transfer")
-        return to_host(buf, metrics)
-
-    def _fetch(self, out: dict, metrics: dict) -> dict:
-        """_fetch behind the "host-transfer" fault site."""
-        self._inject("host-transfer")
-        return _fetch(out, metrics)
+        deadline = self.config.query_deadline_s
+        if deadline is None:
+            return self._dispatch(call, metrics, table_name)
+        if self._wedged:
+            self._reprobe_device(deadline)
+        return self._join_abandoning(
+            lambda: self._dispatch(call, metrics, table_name), deadline,
+            {"datasource": table_name, "batch_dispatch": True,
+             "query_type": "batch"},  # a failure record, not a note
+            name="tpu-olap-batch-dispatch")
 
     # ------------------------------------------------ device health
 
     def _probe_device(self, timeout: float) -> bool:
         """A small reduction on the runner's device, on a watchdog
         thread; True iff it returns the right sum within `timeout`. On the
-        card the thread synchronizes the current CUDA stream, so a hung
-        or failed device shows. The "reprobe" fault site lives here, so
-        a failing probe is testable without a sick device."""
+        card the thread synchronizes the current CUDA stream, so that a
+        hung kernel ahead of it, or a failed device, shows. The "reprobe"
+        fault site lives here, so a failing probe is testable without a
+        sick device."""
         ok = threading.Event()
 
         def work():
@@ -338,53 +735,252 @@ class QueryRunner:
         t.join(timeout)
         return ok.is_set()
 
-    def _recover_after_probe(self):
-        """The probe succeeded: evict the resident datasets (stacks a
-        device reset would poison) and the plans' device constants and
-        segment masks, but keep the compiled kernels (the plans and the
-        process's cubin cache): recompiling every template would stall
-        the first queries after recovery. Holds dispatch_lock (the
-        serialized form; the pipelined mode's bounded acquire comes
-        with item 12b). Slots stranded in the admission pipeline and
-        the stage pools are reclaimed too."""
-        with self.dispatch_lock:
+    def _recover_after_probe(self, lock_timeout_s: float | None = None
+                             ) -> bool:
+        """The probe succeeded: clear the wedge and evict the resident
+        datasets (stacks a device reset would poison) and the plans'
+        device constants and segment masks, but keep the compiled kernels
+        (the plans and the process's cubin cache): recompiling every
+        template would stall the first statements after recovery. Takes
+        dispatch_lock itself (re-entrant for the serialized path, whose
+        caller holds it); in pipelined mode the acquire is bounded, since
+        an abandoned stage 1 can strand the lock, and a stranded lock
+        returns False (callers treat it as a failed probe). Success also
+        reclaims the pipeline and stage slots abandoned threads hold."""
+        if self._pipelined:
+            t = 5.0 if lock_timeout_s is None \
+                else max(1.0, float(lock_timeout_s))
+            if not self.dispatch_lock.acquire(timeout=t):
+                self.record({"device_probe_lock_stranded": True})
+                return False
+        else:
+            self.dispatch_lock.acquire()
+        try:
+            self._wedged = False
             for ds in list(self._datasets.values()):
                 ds.evict()
             self._datasets.clear()
-            for _, plan in list(self._plan_cache.values()):
+            with self._cache_lock:
+                plans = [plan for _, plan in self._plan_cache.values()]
+            for plan in plans:
                 plan.__dict__.pop("_device_consts", None)
                 plan.__dict__.pop("_device_seg_mask", None)
+        finally:
+            self.dispatch_lock.release()
         self.admission.reset_pipeline()
         self.stages.reclaim_stranded()
-
-    def _healer_probe(self) -> bool:
-        """The breaker healer's half-open probe: the same round trip, then
-        the recovery purge, so that the first query after recovery starts
-        from fresh stacks."""
-        if not self._probe_device(10.0):
-            return False
-        self._recover_after_probe()
+        self.record({"device_probe_recovered": True})
         return True
 
-    def _execute(self, query, table) -> QueryResult:
-        t0 = time.perf_counter()
-        if isinstance(query, TimeBoundaryQuerySpec):
-            res = self._run_time_boundary(query, table)
-        elif isinstance(query, SegmentMetadataQuerySpec):
-            res = self._run_segment_metadata(query, table)
-        elif isinstance(query, SearchQuerySpec):
-            res = self._run_search(query, table)
-        elif isinstance(query, (ScanQuerySpec, SelectQuerySpec)):
-            res = self._run_scan(query, table)
-        elif isinstance(query, (TimeseriesQuerySpec, GroupByQuerySpec,
-                                TopNQuerySpec)):
-            res = self._run_agg(query, table)
+    def _reprobe_device(self, deadline: float):
+        """Post-wedge health check: a probe under the deadline. Success
+        clears the wedge and purges the resident state; failure raises
+        at once."""
+        if not self._probe_device(deadline):
+            self.record({"device_probe_failed": True})
+            self.breaker.record_failure("probe")
+            raise QueryDeadlineExceeded(
+                "device still unresponsive after a deadline-expired query")
+        if not self._recover_after_probe(deadline):
+            self.breaker.record_failure("probe")
+            raise QueryDeadlineExceeded(
+                "device answered the probe but the dispatch lock is "
+                "stranded by an abandoned dispatch")
+
+    def _healer_probe(self) -> bool:
+        """The breaker healer's half-open probe: the same round trip,
+        then the recovery purge, so that the first statement after
+        recovery starts from fresh stacks. A stranded lock keeps the
+        breaker open until the healer's next try."""
+        timeout = self.config.query_deadline_s or 10.0
+        if not self._probe_device(timeout):
+            self.record({"device_probe_failed": True})
+            return False
+        return self._recover_after_probe(timeout)
+
+    # ------------------------------------------------------ the record
+
+    def _metric_path(self, m: dict) -> str:
+        """Which execution flavor served a record (the JAX package's path
+        label): "fallback" / "fallback_breaker" for the interpreter,
+        "cache" for a full-result hit (no dispatch ran), "cube" for a
+        cube serve, "batch" for a shared or deduplicated pass, "sparse",
+        "fused" (the fused reduce; the JAX package's "pallas") or "dense"
+        (the generic reduce); tier-1 partial hits keep their dispatch's
+        label."""
+        if m.get("query_type") == "fallback" or m.get("fallback"):
+            if m.get("fallback_breaker"):
+                return "fallback_breaker"
+            return "fallback"
+        if m.get("cache_tier") == "full":
+            return "cache"
+        if m.get("cube"):
+            return "cube"
+        if m.get("batch_dedup") or m.get("batch_legs", 0) > 1:
+            return "batch"
+        if m.get("route") == "sparse":
+            return "sparse"
+        if m.get("fused"):
+            return "fused"
+        return "dense"
+
+    def record(self, m: dict) -> dict:
+        """The one gate every statement's record passes through:
+        sanitize non-JSON values to short strings (in place, so a
+        QueryResult.metrics sharing the dict stays consistent), stamp the
+        core keys (query_id from the active trace), fold the record into
+        the incremental totals and the metrics registry, the workload
+        profiler, the SLO tracker and the event log, then append it to
+        the history ring. Runner notes (query_type "?": the probe's
+        outcomes) log a `device` event and land in history only."""
+        # the transient workload fingerprint rides under `_wl`, popped
+        # before sanitizing so that the object never stringifies
+        fp = m.pop("_wl", None)
+        for k in list(m):
+            m[k] = sanitize_metric_value(m[k])
+        if in_introspection():
+            return m
+        m.setdefault("query_id",
+                     current_query_id() or self.tracer.new_query_id())
+        m.setdefault("ts_ms", int(time.time() * 1000))
+        tp = current_traceparent()
+        if tp is not None:
+            m.setdefault("traceparent", tp)
+        if fp is not None:
+            m.setdefault("template_id", fp.template_id)
+        for k, v in CORE_METRIC_DEFAULTS:
+            m.setdefault(k, v)
+        qt, path = m["query_type"], self._metric_path(m)
+        m["path"] = path
+        if qt == "?":
+            self.events.emit(
+                "device", query_id=m["query_id"],
+                **{k: v for k, v in m.items()
+                   if k.startswith("device_probe")})
+            self.history.append(m)
+            return m
+        self.workload.observe(m, fp)
+        with self._totals_lock:
+            t = self._totals
+            t["queries"] += 1
+            t["rows_scanned"] += m["rows_scanned"] or 0
+            t["segments_scanned"] += m["segments_scanned"] or 0
+            t["segments_pruned"] += max(
+                0, (m.get("segments_total", 0) or 0)
+                - (m["segments_scanned"] or 0))
+            t["cache_hits"] += 1 if m["cache_hit"] else 0
+            t["total_ms"] += m["total_ms"] or 0.0
+            self._by_query_type[qt] = self._by_query_type.get(qt, 0) + 1
+        self._m_queries.inc(query_type=qt, path=path)
+        self._m_latency.observe(m["total_ms"] or 0.0,
+                                query_type=qt, path=path)
+        self._m_rows.inc(m["rows_scanned"] or 0)
+        self._m_segments.inc(m["segments_scanned"] or 0)
+        if m.get("retries"):
+            self._m_retries.inc(m["retries"])
+        if m.get("deadline_exceeded"):
+            self._m_deadline.inc()
+        if m.get("fallback_breaker"):
+            self._m_degraded.inc()
+        if "hbm_bytes" in m:
+            self._m_hbm_bytes.set(m["hbm_bytes"])
+        if "hbm_evictions" in m:
+            self._m_hbm_evict.set_total(m["hbm_evictions"])
+        if in_nested_execution():
+            # an internal leg of a larger statement (a grouping-sets
+            # union, a planner subquery, a fallback derived table): its
+            # record and per-path metrics stay, the SLO observation and
+            # `query` event belong to the outer statement
+            self.history.append(m)
+            return m
+        # interim device failures (failed or deadline records on a
+        # non-fallback path) log as `query_error` and never count against
+        # the SLO here: the served outcome is accounted once elsewhere
+        # (the compensating fallback record, or the statement boundary
+        # when the failure propagates). Everything else is a served
+        # response: one `query` event and one SLO observation.
+        failed = bool(m.get("failed") or m.get("deadline_exceeded"))
+        if failed and qt != "fallback":
+            self.events.emit(
+                "query_error", query_id=m["query_id"], query_type=qt,
+                path=path, datasource=m["datasource"],
+                total_ms=round(m["total_ms"] or 0.0, 3),
+                **({"deadline_exceeded": True}
+                   if m.get("deadline_exceeded") else {}))
         else:
-            raise TypeError(f"unknown query type {type(query).__name__}")
-        res.metrics["total_ms"] = (time.perf_counter() - t0) * 1000
-        fp = self._observe(res.metrics, query, table)
-        self._store_full_cache(query, table, res, fp)
+            # the SLO sees the latency the user saw: a compensating
+            # fallback adds the wall its statement burned on the failed
+            # device attempt. Client-shaped failures never burn budget.
+            if not (failed and m.get("client_error")):
+                self.slo.observe((m["total_ms"] or 0.0)
+                                 + (m.get("device_attempt_ms") or 0.0),
+                                 failed=failed)
+            self.events.emit(
+                "query", query_id=m["query_id"], query_type=qt,
+                path=path, datasource=m["datasource"],
+                total_ms=round(m["total_ms"] or 0.0, 3),
+                cache_hit=bool(m["cache_hit"]),
+                **({"cache_tier": m["cache_tier"]}
+                   if m.get("cache_tier") else {}),
+                **({"failed": True} if failed else {}))
+        self.history.append(m)
+        return m
+
+    def counters(self) -> dict:
+        """Aggregate counters, kept incrementally at record time: exact
+        over the engine's lifetime, history-ring eviction or not."""
+        with self._totals_lock:
+            out = dict(self._totals)
+            out["by_query_type"] = dict(self._by_query_type)
+        return out
+
+    # ------------------------------------------------ the statement
+
+    def _execute(self, query, table, abandoned=None) -> QueryResult:
+        """One statement's stage graph, ending in one record(); a failure
+        records too (with its retry errors), then propagates. `abandoned`
+        is set when a deadline gave up on this thread: its record is
+        then discarded (the deadline's own record stands)."""
+        t0 = time.perf_counter()
+        self.last_metrics = {"host_copies": 0}
+        try:
+            with self.stages.graph(self.config.query_deadline_s):
+                res = self._execute_graph(query, table)
+        except Exception:
+            m = self.last_metrics
+            m["failed"] = True
+            m["query_type"] = query.query_type
+            m["datasource"] = table.name
+            m["total_ms"] = (time.perf_counter() - t0) * 1000
+            m["_wl"] = self.fingerprint(query, table.name)
+            if abandoned is None or not abandoned.is_set():
+                self.record(m)
+            raise
+        m = res.metrics
+        m["total_ms"] = (time.perf_counter() - t0) * 1000
+        m["query_type"] = query.query_type
+        m["datasource"] = table.name
+        fp = self.fingerprint(query, table.name)
+        m["_wl"] = fp
+        if abandoned is None or not abandoned.is_set():
+            self.record(m)
+            self._store_full_cache(query, table, res, fp)
+        self.last_metrics = m
         return res
+
+    def _execute_graph(self, query, table) -> QueryResult:
+        if isinstance(query, TimeBoundaryQuerySpec):
+            return self._run_time_boundary(query, table)
+        if isinstance(query, SegmentMetadataQuerySpec):
+            return self._run_segment_metadata(query, table)
+        if isinstance(query, SearchQuerySpec):
+            return self._run_search(query, table)
+        if isinstance(query, (ScanQuerySpec, SelectQuerySpec)):
+            return self._run_scan(query, table)
+        if isinstance(query, (TimeseriesQuerySpec, GroupByQuerySpec,
+                              TopNQuerySpec)):
+            return self._run_agg(query, table)
+        raise TypeError(f"unknown query type {type(query).__name__}")
 
     # --------------------------------------------- semantic result cache
 
@@ -398,23 +994,26 @@ class QueryRunner:
 
     def _serve_full_cache(self, query, table) -> QueryResult | None:
         """Tier-2 lookup: a hit returns a fresh QueryResult sharing the
-        cached rows (cache_hit, cache_tier "full", path "cache", route
-        "cache", rows_scanned 0, no launch and no copy). None = miss or
-        bypass; the caller executes."""
+        cached rows, with its own record (cache_hit, cache_tier "full",
+        path "cache", route "cache", rows_scanned 0, no launch and no
+        copy). None = miss or bypass; the caller executes."""
         if not self._cacheable(query, table):
             return None
         t0 = time.perf_counter()
-        hit = self.result_cache.get_full(query, table)
+        with _span("result-cache") as sp:
+            hit = self.result_cache.get_full(query, table)
+            sp.set(tier="full", hit=hit is not None)
         if hit is None:
             return None
         rows, druid, meta = hit
-        m = {"route": "cache", "host_copies": 0, "cache_hit": True,
+        m = {"query_type": query.query_type, "datasource": table.name,
+             "route": "cache", "host_copies": 0, "cache_hit": True,
              "cache_tier": "full", "rows_scanned": 0,
              "segments_scanned": 0,
              "segments_total": meta.get("segments_total", 0),
-             "rows_returned": len(rows),
+             "rows_returned": len(rows), "_wl": meta.get("_wl_fp"),
              "total_ms": (time.perf_counter() - t0) * 1000}
-        self._observe(m, query, table, meta.get("_wl_fp"))
+        self.record(m)
         return QueryResult(query, rows, druid, m)
 
     def _store_full_cache(self, query, table, res: QueryResult, fp=None):
@@ -441,44 +1040,33 @@ class QueryRunner:
         except Exception:  # noqa: BLE001 — profiling must never raise
             return None
 
-    def _observe(self, m: dict, query, table, fp=None):
-        """Stamp a completed statement's metrics (query_type, datasource,
-        path) and fold them into the workload profiler, once per
-        statement. Returns the fingerprint."""
-        m.setdefault("query_type", getattr(query, "query_type", "?"))
-        m.setdefault("datasource", table.name)
-        m.setdefault("cache_hit", False)
-        m["path"] = _metric_path(m)
-        if in_introspection():
-            return fp
-        if fp is None:
-            fp = self.fingerprint(query, table.name)
-        if fp is not None:
-            m.setdefault("template_id", fp.template_id)
-        self.workload.observe(m, fp)
-        return fp
-
     def clear_cache(self, table_name: str | None = None):
         """Drop one table's resident columns, memoized plans, cap hints
         and both result-cache tiers, or every table's (None): the next
-        query re-uploads."""
+        query re-uploads. Snapshots first: an abandoned deadline thread
+        may touch these dicts concurrently."""
         self.result_cache.clear(table_name)
         if table_name is None:
             for ds in list(self._datasets.values()):
                 ds.evict()
-            for store in (self._datasets, self._plan_cache, self._cap_hints):
-                store.clear()
+            self._datasets.clear()
+            self._cap_hints.clear()
+            with self._cache_lock:
+                self._plan_cache.clear()
             return
         ds = self._datasets.pop(table_name, None)
         if ds is not None:
             ds.evict()
-        for store in (self._plan_cache, self._cap_hints):
-            for k in [k for k in store if k[0] == table_name]:
-                del store[k]
+        for k in [k for k in list(self._cap_hints) if k[0] == table_name]:
+            self._cap_hints.pop(k, None)
+        with self._cache_lock:
+            for k in [k for k in self._plan_cache if k[0] == table_name]:
+                del self._plan_cache[k]
 
     def device_bytes(self) -> int:
         """Resident device bytes over every table's dataset."""
-        return sum(ds.resident_bytes() for ds in self._datasets.values())
+        return sum(ds.resident_bytes() for ds in list(
+            self._datasets.values()))
 
     def _dataset(self, table) -> DeviceDataset:
         ds = self._datasets.get(table.name)
@@ -523,22 +1111,27 @@ class QueryRunner:
         return out
 
     def _lower_cached(self, query, table) -> PhysicalPlan:
-        """Memoized lower(): re-lowering an unchanged query costs
-        milliseconds of pure Python per execution. Keyed on the full
-        query JSON plus the config; a table identity check invalidates on
-        re-registration."""
+        """Memoized lower() under the "plan" stage: re-lowering an
+        unchanged query costs milliseconds of pure Python per execution.
+        Keyed on the full query JSON plus the config; a table identity
+        check invalidates on re-registration. Lowering runs outside
+        dispatch_lock in pipelined mode; a duplicate concurrent lowering
+        is last-write-wins."""
         import json
-        key = (table.name,
-               json.dumps(query.to_json(), sort_keys=True, default=str),
-               repr(self.config))
-        hit = self._plan_cache.get(key)
-        if hit is not None and hit[0] is table:
-            return hit[1]
-        plan = lower(query, table, self.config)
-        if len(self._plan_cache) > 512:
-            self._plan_cache.pop(next(iter(self._plan_cache)))
-        self._plan_cache[key] = (table, plan)
-        return plan
+        with self.stages.stage("plan", self.last_metrics):
+            key = (table.name,
+                   json.dumps(query.to_json(), sort_keys=True, default=str),
+                   repr(self.config))
+            with self._cache_lock:
+                hit = self._plan_cache.get(key)
+            if hit is not None and hit[0] is table:
+                return hit[1]
+            plan = lower(query, table, self.config)
+            with self._cache_lock:
+                if len(self._plan_cache) > 512:
+                    self._plan_cache.pop(next(iter(self._plan_cache)))
+                self._plan_cache[key] = (table, plan)
+            return plan
 
     def _device_consts(self, plan: PhysicalPlan) -> dict:
         """The plan's ConstPool on the device, once per plan. Scalars ride
@@ -554,10 +1147,17 @@ class QueryRunner:
 
     def _prepare(self, plan: PhysicalPlan, metrics: dict, pinned=None):
         """Dataset env + derived streams + validity/segment masks + scan
-        metrics. The working set (`pinned`, default the plan's own; a
-        fused batch passes its legs' union) is pinned in the ledger
-        while it builds, so that nothing it reads is evicted before the
-        launch that reads it."""
+        metrics, under a `prepare` span. The working set (`pinned`,
+        default the plan's own; a fused batch passes its legs' union) is
+        pinned in the ledger while it builds, so that nothing it reads is
+        evicted before the launch that reads it."""
+        with _span("prepare") as sp:
+            out = self._prepare_inner(plan, metrics, pinned)
+            sp.set(rows_scanned=metrics.get("rows_scanned"),
+                   segments_scanned=metrics.get("segments_scanned"))
+        return out
+
+    def _prepare_inner(self, plan: PhysicalPlan, metrics: dict, pinned):
         table = plan.table
         ds = self._dataset(table)
         if pinned is None:
@@ -623,7 +1223,8 @@ class QueryRunner:
 
     def _dispatch_args(self, plan: PhysicalPlan, metrics: dict):
         """(env, valid, seg_mask, consts) of the plan's kernel, cut to
-        the segment window when it saves enough."""
+        the segment window when it saves enough. Stage-1 work: the
+        caller holds the enqueue lock."""
         t0 = time.perf_counter()
         env, valid, seg_mask, consts = self._prepare(plan, metrics)
         metrics["prepare_ms"] = (time.perf_counter() - t0) * 1000
@@ -638,11 +1239,14 @@ class QueryRunner:
         return env, valid, seg_mask, consts
 
     def _run_partials(self, plan: PhysicalPlan, metrics: dict) -> dict:
-        """Unpacked route: dispatch the plan's kernel and fetch every
-        partial table with one device-to-host copy."""
-        args = self._dispatch_args(plan, metrics)
+        """Unpacked route: the plan's kernel and every partial table back
+        in one copy. Stage 1 launches and queues the copy; stage 2 waits
+        for it."""
         t0 = time.perf_counter()
-        out = self._fetch(plan.kernel(*args), metrics)
+        with self._pipeline_slot():
+            out = self._staged_fetch(
+                lambda: plan.kernel(*self._dispatch_args(plan, metrics)),
+                metrics)
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
         return out
 
@@ -660,24 +1264,34 @@ class QueryRunner:
 
     def _run_packed(self, plan: PhysicalPlan, metrics: dict):
         """Packed route: the kernel plus device finalize/compact/pack, one
-        buffer back. The cap adapts per template, with a sized retry when
-        a run overflows its hint. Returns (idx, compact, layout), or None
-        when the groups exceed `result_group_cap` (the caller re-runs
-        unpacked)."""
-        args = self._dispatch_args(plan, metrics)
+        buffer back. The cap adapts per template, with a sized re-run
+        when a run overflows its hint: each attempt is one stage-1
+        enqueue (the lock taken anew) and one stage-2 read of the count.
+        Returns (idx, compact, layout), or None when the groups exceed
+        `result_group_cap` (the caller re-runs unpacked)."""
         cap_limit = min(self.config.result_group_cap, plan.total_groups)
         key, cap = self._cap_hint(plan, "packed", cap_limit, cap_limit)
+        args = None
         t0 = time.perf_counter()
-        while True:
-            layout = make_layout(plan, self.config, cap)
-            buf = build_packer(plan.kernel, plan, layout)(*args)
-            count, idx, compact = unpack(self._copy(buf, metrics), layout)
-            if count <= layout.cap:
-                break
-            if count > cap_limit:
-                metrics["result_groups"] = count
-                return None
-            cap = min(cap_limit, _next_pow2(count))
+        with self._pipeline_slot(), _span("dispatch", packed=True) as dsp:
+            while True:
+                layout = make_layout(plan, self.config, cap)
+
+                def launch(layout=layout):
+                    nonlocal args
+                    if args is None:
+                        args = self._dispatch_args(plan, metrics)
+                    return build_packer(plan.kernel, plan, layout)(*args)
+                buf = self._staged_fetch(launch, metrics,
+                                         dispatch_span=False)
+                count, idx, compact = unpack(buf, layout)
+                if count <= layout.cap:
+                    break
+                if count > cap_limit:
+                    metrics["result_groups"] = count
+                    dsp.set(overflow=True)
+                    return None
+                cap = min(cap_limit, _next_pow2(count))
         self._cap_hints[key] = count
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
         metrics["result_groups"] = count
@@ -686,27 +1300,35 @@ class QueryRunner:
 
     def _run_sparse(self, plan: PhysicalPlan, metrics: dict) -> dict:
         """Sparse route: the sort-based group-by with an adaptive compact
-        table cap; each attempt is one copy back. Past
-        `sparse_group_budget` present groups it raises
-        UnsupportedAggregation, and the engine serves the query from the
-        fallback interpreter."""
-        args = self._dispatch_args(plan, metrics)
+        table cap; each attempt is one stage-1 enqueue and one copy back,
+        read in stage 2. Past `sparse_group_budget` present groups it
+        raises UnsupportedAggregation, and the engine serves the query
+        from the fallback interpreter."""
         cap_limit = min(self.config.sparse_group_budget, plan.total_groups)
         key, cap = self._cap_hint(plan, "sparse",
                                   self.config.sparse_group_cap, cap_limit)
+        args = None
         t0 = time.perf_counter()
         reruns = []
-        while True:
-            out = self._fetch(plan.make_sparse_kernel(cap)(*args), metrics)
-            count = int(out["_count"])
-            if count <= cap:
-                break
-            if count > cap_limit:
-                raise UnsupportedAggregation(
-                    f"{count} present groups exceed sparse budget "
-                    f"{cap_limit}")
-            reruns.append(cap)
-            cap = min(cap_limit, _next_pow2(count))
+        with self._pipeline_slot(), _span("dispatch", sparse=True) as sp:
+            while True:
+                def launch(cap=cap):
+                    nonlocal args
+                    if args is None:
+                        args = self._dispatch_args(plan, metrics)
+                    return plan.make_sparse_kernel(cap)(*args)
+                out = self._staged_fetch(launch, metrics,
+                                         dispatch_span=False)
+                count = int(out["_count"])
+                if count <= cap:
+                    break
+                if count > cap_limit:
+                    raise UnsupportedAggregation(
+                        f"{count} present groups exceed sparse budget "
+                        f"{cap_limit}")
+                reruns.append(cap)
+                cap = min(cap_limit, _next_pow2(count))
+            sp.set(result_groups=count)
         self._cap_hints[key] = count
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
         metrics["result_groups"] = count
@@ -717,7 +1339,8 @@ class QueryRunner:
     def _run_agg(self, query, table) -> QueryResult:
         metrics = self.last_metrics = {"host_copies": 0}
         t0 = time.perf_counter()
-        plan = self._lower_cached(query, table)
+        with _span("lower"):
+            plan = self._lower_cached(query, table)
         metrics["lower_ms"] = (time.perf_counter() - t0) * 1000
         metrics["fused"] = plan.fused_reason is None
         if plan.fused_reason is not None:
@@ -732,50 +1355,58 @@ class QueryRunner:
             out = self._dispatch(lambda: self._run_sparse(plan, metrics),
                                  metrics, table.name)
             t0 = time.perf_counter()
-            arrays = finalize_aggs(out, plan.agg_plans, specs, keep_raw)
-            eval_post_aggs(arrays, query.post_aggregations)
+            with self.stages.stage("finalize", metrics):
+                with _span("finalize"):
+                    arrays = finalize_aggs(out, plan.agg_plans, specs,
+                                           keep_raw)
+                with _span("post-agg"):
+                    eval_post_aggs(arrays, query.post_aggregations)
             names = self._out_names(query)
             pm = out["_keys"] != SENTINEL  # empty slots fill the tail
             present = out["_keys"][pm]
             sub = {n: np.asarray(arrays[n])[pm] for n in names}
-            res = self._emit_groupby(query, plan, present, sub)
+            with self.stages.stage("assemble", metrics), _span("assemble"):
+                res = self._emit_groupby(query, plan, present, sub)
             res.metrics = metrics
             metrics["assemble_ms"] = (time.perf_counter() - t0) * 1000
             return res
 
+        arrays = None
         if self.result_cache.seg_enabled:
             arrays = self._run_agg_segcached(query, plan, metrics, specs,
                                              keep_raw, table)
-            if arrays is not None:
-                t0 = time.perf_counter()
-                eval_post_aggs(arrays, query.post_aggregations)
-                res = self._assemble_agg(query, plan, arrays)
-                res.metrics = metrics
-                metrics["assemble_ms"] = (time.perf_counter() - t0) * 1000
-                return res
-
-        packed = None if keep_raw else self._dispatch(
-            lambda: self._run_packed(plan, metrics), metrics, table.name)
-        if packed is not None:
-            metrics["route"] = "packed"
-            idx, compact, layout = packed
             t0 = time.perf_counter()
-            for p in plan.agg_plans:
-                if p.kind == "hll" and \
-                        getattr(specs.get(p.name), "round", True):
-                    compact[p.name] = np.round(compact[p.name])
-            arrays = densify(idx, compact, layout, plan.agg_plans)
-        else:
-            # theta set ops, or a packed overflow past result_group_cap
-            metrics["route"] = "unpacked"
-            partials = self._dispatch(
-                lambda: self._run_partials(plan, metrics), metrics,
+        if arrays is None:
+            packed = None if keep_raw else self._dispatch(
+                lambda: self._run_packed(plan, metrics), metrics,
                 table.name)
-            t0 = time.perf_counter()
-            arrays = finalize_aggs(partials, plan.agg_plans, specs,
-                                   keep_raw)
-        eval_post_aggs(arrays, query.post_aggregations)
-        res = self._assemble_agg(query, plan, arrays)
+            if packed is not None:
+                metrics["route"] = "packed"
+                idx, compact, layout = packed
+                t0 = time.perf_counter()
+                for p in plan.agg_plans:
+                    if p.kind == "hll" and \
+                            getattr(specs.get(p.name), "round", True):
+                        compact[p.name] = np.round(compact[p.name])
+                with self.stages.stage("finalize", metrics), \
+                        _span("finalize"):
+                    arrays = densify(idx, compact, layout, plan.agg_plans)
+            else:
+                # theta set ops, or a packed overflow past
+                # result_group_cap
+                metrics["route"] = "unpacked"
+                partials = self._dispatch(
+                    lambda: self._run_partials(plan, metrics), metrics,
+                    table.name)
+                t0 = time.perf_counter()
+                with self.stages.stage("finalize", metrics), \
+                        _span("finalize"):
+                    arrays = finalize_aggs(partials, plan.agg_plans, specs,
+                                           keep_raw)
+        with self.stages.stage("finalize", metrics), _span("post-agg"):
+            eval_post_aggs(arrays, query.post_aggregations)
+        with self.stages.stage("assemble", metrics), _span("assemble"):
+            res = self._assemble_agg(query, plan, arrays)
         res.metrics = metrics
         metrics["assemble_ms"] = (time.perf_counter() - t0) * 1000
         return res
@@ -817,22 +1448,27 @@ class QueryRunner:
                 covered.append(sid)
             else:
                 always_compute.append(sid)
-        hits = rc.get_segments(tkey, table, plan, covered)
-        to_compute = sorted([s for s in covered if s not in hits]
-                            + always_compute)
-        if to_compute:
-            fresh = self._dispatch(
-                lambda: self._run_seg_partials(plan, metrics, to_compute),
-                metrics, table.name)
-            storable = set(covered)
-            for sid in to_compute:
-                if sid in storable:
-                    rc.put_segment(tkey, table, plan, sid, fresh[sid])
-        else:
-            fresh = {}
-            metrics["segments_total"] = len(table.segments)
-            metrics["segments_scanned"] = 0
-            metrics["rows_scanned"] = 0
+        with _span("segment-cache") as sp:
+            hits = rc.get_segments(tkey, table, plan, covered)
+            to_compute = sorted([s for s in covered if s not in hits]
+                                + always_compute)
+            sp.set(segments_cached=len(hits),
+                   segments_computed=len(to_compute),
+                   segments_uncovered=len(always_compute))
+            if to_compute:
+                fresh = self._dispatch(
+                    lambda: self._run_seg_partials(plan, metrics,
+                                                   to_compute),
+                    metrics, table.name)
+                storable = set(covered)
+                for sid in to_compute:
+                    if sid in storable:
+                        rc.put_segment(tkey, table, plan, sid, fresh[sid])
+            else:
+                fresh = {}
+                metrics["segments_total"] = len(table.segments)
+                metrics["segments_scanned"] = 0
+                metrics["rows_scanned"] = 0
         metrics["cache_hit"] = bool(hits)
         if hits:
             metrics["cache_tier"] = "segment"
@@ -842,7 +1478,8 @@ class QueryRunner:
                  for s in sorted(set(covered) | set(always_compute))]
         merged = functools.reduce(
             lambda a, b: merge_partials(a, b, plan.agg_plans), parts)
-        return finalize_aggs(merged, plan.agg_plans, specs, keep_raw)
+        with self.stages.stage("finalize", metrics), _span("finalize"):
+            return finalize_aggs(merged, plan.agg_plans, specs, keep_raw)
 
     def _run_seg_partials(self, plan: PhysicalPlan, metrics: dict,
                           compute_ids: list) -> dict:
@@ -855,29 +1492,27 @@ class QueryRunner:
         `compute_ids`. Fused plans launch the segment-extended fused
         reduce once (kernels.fused_reduce.fused_reduce_seg); others (HLL,
         theta) run the generic reduce with the same extended key. Either
-        way one copy brings every segment's partials back. A failure
-        raises: nothing serves the plain path in its place."""
-        env, valid, _, consts = self._prepare(plan, metrics)
+        way one copy, queued in stage 1 and read in stage 2, brings every
+        segment's partials back. A failure raises: nothing serves the
+        plain path in its place."""
         table = plan.table
-        seg_mask = self._dataset(table).segment_mask(compute_ids)
-        # only the computed segments are read
-        metrics["segments_scanned"] = len(compute_ids)
-        metrics["rows_scanned"] = int(sum(
-            table.segments[i].meta.n_valid for i in compute_ids))
-        S = valid.shape[0]
         K = plan.total_groups
-        lo, hi = min(compute_ids), max(compute_ids) + 1
-        W = min(_next_pow2(hi - lo), S)
-        lo = min(lo, S - W)
-        metrics["segments_window"] = W
-        t0 = time.perf_counter()
-        if plan.fused_reason is None:
-            prog = fused_reduce.program(plan, table)
-            sums, mins = fused_reduce.fused_reduce_seg(
-                prog, fused_reduce.program_inputs(prog, env), valid,
-                seg_mask, K, lo, W)
-            out = fused_reduce.partials(plan, sums, mins)
-        else:
+        win = []
+
+        def launch():
+            env, valid, _, consts = self._prepare(plan, metrics)
+            seg_mask = self._dataset(table).segment_mask(compute_ids)
+            S = valid.shape[0]
+            lo, hi = min(compute_ids), max(compute_ids) + 1
+            W = min(_next_pow2(hi - lo), S)
+            lo = min(lo, S - W)
+            win[:] = [lo, W]
+            if plan.fused_reason is None:
+                prog = fused_reduce.program(plan, table)
+                sums, mins = fused_reduce.fused_reduce_seg(
+                    prog, fused_reduce.program_inputs(prog, env), valid,
+                    seg_mask, K, lo, W)
+                return fused_reduce.partials(plan, sums, mins)
             sl = slice(lo, lo + W)
             flat = {kind: {c: a[sl].reshape(-1)
                            for c, a in env[kind].items()}
@@ -890,12 +1525,23 @@ class QueryRunner:
             # int32 is safe: tier1_bypass_reason refuses key spaces of
             # 2^31 and more
             key2 = seg_local * K + key.to(torch.int32)
-            out = group_reduce(key2, mask, fenv, plan.agg_plans, W * K,
-                               consts)
-        host = self._fetch(out, metrics)
+            return group_reduce(key2, mask, fenv, plan.agg_plans, W * K,
+                                consts)
+
+        t0 = time.perf_counter()
+        with self._pipeline_slot():
+            host = self._staged_fetch(launch, metrics)
+        lo, W = win
+        # only the computed segments are read
+        metrics["segments_scanned"] = len(compute_ids)
+        metrics["rows_scanned"] = int(sum(
+            table.segments[i].meta.n_valid for i in compute_ids))
+        metrics["segments_window"] = W
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
-        shaped = {n: torch.from_numpy(a).reshape((W, K) + a.shape[1:])
-                  for n, a in host.items()}
+        # the cache keeps these: copies in pageable memory, not views of
+        # the pinned copy
+        shaped = {n: torch.from_numpy(a.copy()).reshape(
+                  (W, K) + a.shape[1:]) for n, a in host.items()}
         return {sid: {n: a[sid - lo] for n, a in shaped.items()}
                 for sid in compute_ids}
 
@@ -906,13 +1552,18 @@ class QueryRunner:
         group ids [G] int64, {name: [G, ...] compact partial arrays},
         metrics). Rides the cached lowering and the dense partials route
         (the fused reduce on the card, one copy) or the sparse route,
-        under an admission slot, the breaker check, dispatch_lock and the
-        retry layer, so that a background cube build queues behind (and
-        sheds with) foreground traffic."""
-        with self.admission.slot(None), self.dispatch_lock:
+        under an admission slot, the breaker check and the retry layer
+        (dispatch_lock as the mode says), so that a background cube
+        build queues behind (and sheds with) foreground traffic. No
+        deadline: a rollup over the whole table is legitimate
+        long-running background work."""
+        lock = nullcontext() if self._pipelined else \
+            self._timed_dispatch_lock()
+        with self.admission.slot(self.config.query_deadline_s), lock:
             self.breaker.check()
             metrics = self.last_metrics = {"host_copies": 0}
-            plan = self._lower_cached(query, table)
+            with _span("lower"):
+                plan = self._lower_cached(query, table)
             if plan.kind != "agg":
                 raise UnsupportedAggregation(
                     f"{query.query_type} has no mergeable partials")
@@ -1091,12 +1742,16 @@ class QueryRunner:
     def _run_scan(self, query, table) -> QueryResult:
         metrics = self.last_metrics = {"host_copies": 0, "route": "mask"}
         t0 = time.perf_counter()
-        plan = self._lower_cached(query, table)
+        with _span("lower"):
+            plan = self._lower_cached(query, table)
         metrics["lower_ms"] = (time.perf_counter() - t0) * 1000
         t0 = time.perf_counter()
-        mask = self._dispatch(
-            lambda: self._copy(self._run_mask(plan, metrics).reshape(-1),
-                               metrics), metrics, table.name)
+
+        def fetch_mask():
+            with self._pipeline_slot():
+                return self._staged_fetch(
+                    lambda: self._run_mask(plan, metrics), metrics)
+        mask = self._dispatch(fetch_mask, metrics, table.name)
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
         mask = _embed_windowed_mask(
             mask, self._segment_window(plan, len(table.segments)),
@@ -1117,7 +1772,9 @@ class QueryRunner:
             cols = [TIME_COLUMN] + dims + mets
             offset, limit = query.paging_offset, query.page_size
             descending = query.descending
-        events = _gather_rows(table, mask, cols, offset, limit, descending)
+        with self.stages.stage("assemble", metrics), _span("assemble"):
+            events = _gather_rows(table, mask, cols, offset, limit,
+                                  descending)
         metrics["assemble_ms"] = (time.perf_counter() - t0) * 1000
 
         if isinstance(query, ScanQuerySpec):
@@ -1166,10 +1823,14 @@ class QueryRunner:
             def counts():
                 mask = self._run_mask(plan, metrics).reshape(-1)
                 ds = self._dataset(table)
-                return self._copy(search_counts(
+                return search_counts(
                     mask, [ds.col(d)[sl].reshape(-1) for d in coded],
-                    cards), metrics)
-            packed = self._dispatch(counts, metrics, table.name)
+                    cards)
+
+            def fetch_counts():
+                with self._pipeline_slot():
+                    return self._staged_fetch(counts, metrics)
+            packed = self._dispatch(fetch_counts, metrics, table.name)
             metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
             off = 0
             for dim, card in zip(coded, cards):
@@ -1241,25 +1902,6 @@ class QueryRunner:
             "size": int(sum(c.get("size", 0) for c in cols.values())),
         }
         return QueryResult(query, [record], [record], self.last_metrics)
-
-
-def _metric_path(m: dict) -> str:
-    """Which execution flavor served a statement (the JAX package's
-    path label): "cache" for a full-result hit (no dispatch ran),
-    "cube" for a cube serve, "batch" for a shared or deduplicated pass,
-    "sparse", "fused" (the fused reduce) or "dense" (the generic
-    reduce); tier-1 partial hits keep their dispatch's label."""
-    if m.get("cache_tier") == "full":
-        return "cache"
-    if m.get("cube"):
-        return "cube"
-    if m.get("batch_dedup") or m.get("batch_legs", 0) > 1:
-        return "batch"
-    if m.get("route") == "sparse":
-        return "sparse"
-    if m.get("fused"):
-        return "fused"
-    return "dense"
 
 
 def search_counts(mask: torch.Tensor, codes: list, cards: list) -> \
@@ -1377,34 +2019,12 @@ def _search_matcher(sq):
     return m
 
 
-def to_host(buf: torch.Tensor, metrics: dict) -> np.ndarray:
-    """The one device-to-host copy of a query route: a 1-D tensor to a
-    numpy array (counted in metrics["host_copies"], its bytes in
-    metrics["host_bytes"])."""
-    metrics["host_copies"] = metrics.get("host_copies", 0) + 1
-    metrics["host_bytes"] = metrics.get("host_bytes", 0) \
-        + buf.numel() * buf.element_size()
-    return buf.cpu().numpy()
-
-
-def _fetch(out: dict, metrics: dict) -> dict:
-    """{name: device tensor} -> {name: numpy array} in ONE device-to-host
-    copy: every tensor's bytes concatenate into one uint8 buffer."""
-    names = list(out)
-    # fresh dense copies: a column view such as sums[:, 0] keeps its
-    # stride even where torch calls it contiguous (size-1 dims), and
-    # viewing bytes needs stride 1
-    ts = [out[n].new_empty(out[n].shape).copy_(out[n]) for n in names]
-    if not ts:
-        return {}
-    host = to_host(torch.cat([t.reshape(-1).view(torch.uint8) for t in ts]),
-                   metrics)
-    res, off = {}, 0
-    for n, t in zip(names, ts):
-        nb = t.numel() * t.element_size()
-        res[n] = host[off:off + nb].view(_np_dtype(t.dtype)).reshape(t.shape)
-        off += nb
-    return res
+def wait_event(event) -> None:
+    """Stage 2's wait for its copy: the CUDA event recorded after the
+    queued device-to-host copy (it releases the GIL while it blocks). A
+    module function, so that a caller can wrap the one wait of a
+    route — chip_smoke.py lifts torch's sync debug mode around it."""
+    event.synchronize()
 
 
 def _np_dtype(dtype: torch.dtype):

@@ -1,4 +1,5 @@
-"""Stage-graph execution scheduler (docs/EXECUTION.md).
+"""Stage-graph execution scheduler (the JAX package's, copied whole;
+docs/EXECUTION.md describes it).
 
 Query execution is an explicit per-query stage graph —
 
@@ -28,19 +29,12 @@ it), and WAL interval flush register as periodic background graphs
 breaker checks, and fault-injection sites, so foreground deadlines and
 the breaker govern background device work too.
 
-Every stage section appends a record to the query's `stages` metrics
-block and fires the `stage-<name>` fault-injection site
-(resilience.faults) at entry. The JAX package's per-stage metrics
-(`stage_queue_depth`, `stage_wait_ms`, `stage_active_workers`,
-`stage_busy_ms_total`), its `stage:<name>` / `background:<name>` spans
-and its `background_error` event come with the metrics registry, the
-tracer and the event log (ROADMAP queue A item 14).
-
-In the port, the background graphs (cube maintainer, compactor, WAL
-interval flush), `stage("background")`, `reclaim_stranded` and `stop`
-are driven; the query path's stage sections (`graph`, the foreground
-pools, `map_stage`) are copied whole and come into use with the
-pipelined two-stage mode (item 12b).
+Observability: every stage section exports `stage_queue_depth{stage}`,
+`stage_wait_ms{stage}`, `stage_active_workers{stage}` and
+`stage_busy_ms_total{stage}`, opens a `stage:<name>` span (visible in
+EXPLAIN ANALYZE and /debug/queries), appends a record to the query's
+`stages` metrics block, and fires the `stage-<name>` fault-injection
+site (resilience.faults) at entry.
 
 Stranded-worker recovery mirrors AdmissionController.reset_pipeline: a
 deadline-abandoned thread wedged inside a stage section holds its slot;
@@ -49,6 +43,13 @@ than the deadline so a healed device gets its stage capacity back. A
 stranded holder that later wakes releases a reclaimed token, which is
 ignored — worst case one transiently over-occupied stage, never
 permanent starvation.
+
+In the port the query path's sections are the runner's two stages on
+one CUDA stream: stage 1 (`enqueue`, under dispatch_lock) launches the
+kernels and the non-blocking copy into pinned host memory and records
+an event; stage 2 (`transfer`, `finalize`, `assemble`) waits on that
+event and runs without the lock. `map_stage`'s per-chip transfer
+fan-out waits for the multi-GPU mesh (ROADMAP queue A item 13).
 """
 
 from __future__ import annotations
@@ -57,7 +58,9 @@ import contextvars
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+
+from tpu_olap_torch.obs.trace import span as _span
 
 # foreground stage classes, in graph order
 FOREGROUND_STAGES = ("plan", "enqueue", "transfer", "finalize", "assemble")
@@ -132,8 +135,10 @@ class StagePool:
             if len(self._active) < self.max_workers:
                 token = object()
                 self._active[token] = time.perf_counter()
+                self._gauges()
                 return token, 0.0
             self._queued += 1
+            self._gauges()
             t0 = time.perf_counter()
             deadline = None if budget_s is None else t0 + budget_s
             try:
@@ -142,19 +147,21 @@ class StagePool:
                     if deadline is not None:
                         timeout = deadline - time.perf_counter()
                         if timeout <= 0:
-                            # only a deadline budget reaches here; the
-                            # per-query deadline and its
-                            # QueryDeadlineExceeded come with ROADMAP
-                            # queue A item 12b
-                            raise TimeoutError(
+                            # defined in executor.runner (lazy: the
+                            # runner constructs this module's scheduler)
+                            from tpu_olap_torch.executor.runner import \
+                                QueryDeadlineExceeded
+                            raise QueryDeadlineExceeded(
                                 f"no {self.name!r} stage slot within the "
                                 f"{budget_s}s deadline budget "
                                 f"({self.max_workers} occupied)") from None
                     self._cond.wait(timeout)
             finally:
                 self._queued -= 1
+                self._gauges()
             token = object()
             self._active[token] = time.perf_counter()
+            self._gauges()
             return token, (time.perf_counter() - t0) * 1000
 
     def _release(self, token):
@@ -162,7 +169,14 @@ class StagePool:
             start = self._active.pop(token, None)
             if start is not None:  # None: reclaimed while stranded
                 self.busy_ms += (time.perf_counter() - start) * 1000
+            self._gauges()
             self._cond.notify()
+
+    def _gauges(self):
+        s = self._sched
+        if s._m_depth is not None:
+            s._m_depth.set(self._queued, stage=self.name)
+            s._m_active.set(len(self._active), stage=self.name)
 
     @contextmanager
     def section(self, budget_s=None):
@@ -194,6 +208,7 @@ class StagePool:
                 self._active.pop(t, None)
                 self.stranded += 1
             if victims:
+                self._gauges()
                 self._cond.notify_all()
         return len(victims)
 
@@ -210,6 +225,7 @@ class StagePool:
                 raise RuntimeError(f"stage pool {self.name!r} stopped")
             self._tasks.append((fn, ctx, fut, time.perf_counter()))
             self._queued += 1
+            self._gauges()
             if self._idle:
                 self._cond.notify()
             elif self._threads < self.max_workers:
@@ -239,6 +255,9 @@ class StagePool:
                 self._active[token] = time.perf_counter()
                 self.submitted += 1
                 self.wait_ms += waited_ms
+                self._gauges()
+            if self._sched._m_wait is not None:
+                self._sched._m_wait.observe(waited_ms, stage=self.name)
             try:
                 fut._finish(res=ctx.run(fn))
             except BaseException as e:  # noqa: BLE001 - relayed via future
@@ -331,10 +350,32 @@ class StageScheduler:
     """The per-engine stage scheduler: foreground stage pools, graph
     admission, and the background periodic-graph ticker."""
 
-    def __init__(self, config, admission=None, inject=None):
+    def __init__(self, config, metrics=None, admission=None, inject=None,
+                 events=None):
         self.config = config
         self.admission = admission
         self._inject = inject          # callable(stage_site) or None
+        self._events = events
+        self._m_depth = self._m_active = self._m_wait = None
+        self._m_busy = self._m_runs = None
+        if metrics is not None:
+            from tpu_olap_torch.obs.metrics import QUEUE_WAIT_BUCKETS_MS
+            self._m_depth = metrics.gauge(
+                "stage_queue_depth",
+                "Callers queued for a stage-pool slot.", ("stage",))
+            self._m_active = metrics.gauge(
+                "stage_active_workers",
+                "Stage-pool slots currently occupied.", ("stage",))
+            self._m_wait = metrics.histogram(
+                "stage_wait_ms",
+                "Queue wait for a stage-pool slot.", ("stage",),
+                buckets=QUEUE_WAIT_BUCKETS_MS)
+            self._m_busy = metrics.counter(
+                "stage_busy_ms_total",
+                "Total milliseconds spent inside each stage.", ("stage",))
+            self._m_runs = metrics.counter(
+                "stage_runs_total",
+                "Stage sections/tasks executed.", ("stage",))
         depth = max(1, int(getattr(config, "pipeline_depth", 0) or 0) or 2)
         self.pools = {
             "plan": StagePool("plan", max(2, depth), self),
@@ -386,16 +427,24 @@ class StageScheduler:
             budget_s = getattr(self.config, "query_deadline_s", None)
         with pool.section(budget_s) as waited_ms:
             waited_ms += inject_ms
+            if self._m_wait is not None:
+                self._m_wait.observe(waited_ms, stage=name)
             t0 = time.perf_counter()
-            try:
-                yield
-            finally:
-                run_ms = (time.perf_counter() - t0) * 1000
-                if metrics is not None:
-                    metrics.setdefault("stages", []).append(
-                        {"stage": name,
-                         "wait_ms": round(waited_ms, 3),
-                         "run_ms": round(run_ms, 3)})
+            with _span(f"stage:{name}",
+                       **({"queue_wait_ms": round(waited_ms, 3)}
+                          if waited_ms else {})):
+                try:
+                    yield
+                finally:
+                    run_ms = (time.perf_counter() - t0) * 1000
+                    if self._m_busy is not None:
+                        self._m_busy.inc(run_ms, stage=name)
+                        self._m_runs.inc(stage=name)
+                    if metrics is not None:
+                        metrics.setdefault("stages", []).append(
+                            {"stage": name,
+                             "wait_ms": round(waited_ms, 3),
+                             "run_ms": round(run_ms, 3)})
 
     def submit(self, name: str, fn) -> _Future:
         """Run `fn` asynchronously on the named stage's pool (the
@@ -479,11 +528,19 @@ class StageScheduler:
         def run():
             try:
                 with self.stage(BACKGROUND_STAGE):
-                    h.body()
+                    with _span(f"background:{h.name}"):
+                        h.body()
                 h.runs += 1
             except Exception as e:  # noqa: BLE001 - periodic: retry next tick
                 h.errors += 1
                 h.last_error = f"{type(e).__name__}: {e}"
+                if self._events is not None:
+                    try:
+                        self._events.emit("background_error",
+                                          graph=h.name,
+                                          error=h.last_error)
+                    except Exception:  # noqa: BLE001
+                        pass
             finally:
                 with self._tick_cond:
                     h.running = False

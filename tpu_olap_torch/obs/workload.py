@@ -1,11 +1,12 @@
 """Workload introspection — the query-template profiler.
 
-A host-only copy of the JAX package's obs/workload.py. In this package the
-runner feeds the profiler once per completed statement
-(QueryRunner._observe); its consumers here are the cube advisor
-(cubes.advisor) and `QueryRunner.workload.snapshot()`. `sys.query_templates`
-and `GET /debug/workload` come with ROADMAP queue A item 14, and the
-`metrics` registry argument stays None until then.
+A host-only copy of the JAX package's obs/workload.py. In this package
+`QueryRunner.record` feeds the profiler once per record of a completed
+statement (fallback statements by their masked SQL), with the runner's
+metrics registry; its consumers here are the cube advisor
+(cubes.advisor) and `QueryRunner.workload.snapshot()`.
+`sys.query_templates` and `GET /debug/workload` come with the rest of
+ROADMAP queue A item 14.
 
 The reference stack is observable *through its own query language*:
 Druid's `sys` schema and the broker query history are what drive
@@ -397,7 +398,8 @@ class WorkloadProfiler:
 
     def snapshot(self, limit: int | None = None) -> list[dict]:
         """Per-template stat rows, most-queried first — the cube
-        advisor's input (and, once ROADMAP queue A item 14 ports them,
+        advisor's input (and, once the rest of ROADMAP queue A item 14
+        ports them,
         the payload behind sys.query_templates and GET
         /debug/workload)."""
         with self._lock:

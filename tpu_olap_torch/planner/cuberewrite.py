@@ -37,8 +37,10 @@ nothing for the sealed scope. Rows appended since the cube's sealed set
 path: one launch of the segment-extended fused reduce over just those
 segments (QueryRunner._run_seg_partials, the pass tier 1 trusts), under
 its own admission slot, the breaker check and the retry layer, one copy
-back, merged into the cube's fold before finalize. The JAX package's
-spans (obs.trace) come with ROADMAP queue A item 14.
+back, merged into the cube's fold before finalize. A serve leaves one
+history record (route and path "cube"); the JAX package's
+`cube-rewrite` span and the cube metrics come with the rest of ROADMAP
+queue A item 14.
 """
 
 from __future__ import annotations
@@ -347,14 +349,19 @@ def _merge_delta_partials(runner, phys, partials, delta_ids, table_name):
     sealed-scope fold, as CPU tensors. Runs under its own admission slot
     and the breaker check: the cube serve never entered
     QueryRunner.execute, and background-vs-foreground fairness must hold
-    for the delta dispatch too. Returns (merged partials, delta rows
-    scanned, the dispatch's metrics)."""
+    for the delta dispatch too. dispatch_lock as the mode says: the
+    pass's own enqueue section in pipelined mode, the whole dispatch in
+    serialized mode. Returns (merged partials, delta rows scanned, the
+    dispatch's metrics)."""
     import functools
+    from contextlib import nullcontext
 
     from tpu_olap_torch.kernels.groupby import merge_partials
 
     dmet: dict = {"host_copies": 0}
-    with runner.admission.slot(None), runner.dispatch_lock:
+    lock = nullcontext() if runner._pipelined else \
+        runner._timed_dispatch_lock()
+    with runner.admission.slot(runner.config.query_deadline_s), lock:
         runner.breaker.check()
         fresh = runner._dispatch(
             lambda: runner._run_seg_partials(phys, dmet, sorted(delta_ids)),
@@ -470,7 +477,8 @@ def try_serve_cube(engine, plan_result):
             res = _finish(runner, query, phys, partials)
             registry.note_serve(cube)
             registry.count_request("served")
-            m = {"route": "cube", "host_copies": dmet.get("host_copies", 0),
+            m = {"query_type": query.query_type, "datasource": entry.name,
+                 "route": "cube", "host_copies": dmet.get("host_copies", 0),
                  "cube": cube.spec.name,
                  "cube_rows": data.n_rows,
                  "rows_scanned": int(scanned),
@@ -479,10 +487,11 @@ def try_serve_cube(engine, plan_result):
                  "segments_total": len(table.segments),
                  "cache_hit": False,
                  "rows_returned": len(res.rows),
+                 "_wl": runner.fingerprint(query, entry.name),
                  "total_ms": (time.perf_counter() - t0) * 1000}
+            fp = m["_wl"]
             res.metrics = m
-            runner.last_metrics = m
-            fp = runner._observe(m, query, table)
+            runner.last_metrics = runner.record(m)
             runner._store_full_cache(query, table, res, fp)
             return res
         registry.count_request("refused")

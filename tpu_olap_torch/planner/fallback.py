@@ -17,6 +17,7 @@ import pandas as pd
 
 from tpu_olap_torch.ir.expr import (BinOp, Col, FuncCall, Lit, Subquery,
                               WindowCall)
+from tpu_olap_torch.obs.trace import span as _obs_span
 from tpu_olap_torch.planner.exprutil import (contains_agg as _contains_agg,
                                        expr_key as _k, map_stmt_exprs,
                                        render as _auto_name,
@@ -87,7 +88,8 @@ def execute_fallback(stmt, catalog, config) -> pd.DataFrame:
         # Its scope is its own — reject outer-table qualifiers inside
         # the body (they would strip onto the inner frame silently).
         _check_uncorrelated(stmt.derived)
-        df = _run_inner_stmt(stmt.derived, catalog, config)
+        with _obs_span("fallback-derived"):
+            df = _run_inner_stmt(stmt.derived, catalog, config)
         time_col = None
     else:
         entry = catalog.get(stmt.table)
@@ -95,7 +97,8 @@ def execute_fallback(stmt, catalog, config) -> pd.DataFrame:
                 (entry.parquet_rows or 0) > config.fallback_chunk_rows:
             # SF-scale parquet table: stream row-group chunks instead of
             # materializing one frame (SURVEY.md §2 property 2 at scale)
-            return _execute_chunked(stmt, entry, catalog, config)
+            with _obs_span("fallback-chunked"):
+                return _execute_chunked(stmt, entry, catalog, config)
         df = entry.frame
         time_col = entry.time_column
         if any(isinstance(c, Lit) and c.value is False
@@ -113,7 +116,9 @@ def execute_fallback(stmt, catalog, config) -> pd.DataFrame:
         else:
             df = df.copy()
 
-    df = _join_and_filter(stmt, df, catalog, time_col, config)
+    with _obs_span("fallback-filter") as fsp:
+        df = _join_and_filter(stmt, df, catalog, time_col, config)
+        fsp.set(rows=len(df))
 
     out_names = []
     exprs = []
@@ -131,17 +136,18 @@ def execute_fallback(stmt, catalog, config) -> pd.DataFrame:
     if stmt.distinct and not has_agg and not group_exprs:
         group_exprs = list(exprs)
 
-    if stmt.grouping_sets is not None:
-        out = _grouping_sets_aggregate(df, exprs, out_names, stmt,
-                                       time_col)
-    elif group_exprs or has_agg:
-        out = _aggregate(df, exprs, out_names, group_exprs, stmt,
-                         time_col)
-    else:
-        out = pd.DataFrame(
-            {n: _eval(e, df, time_col)
-             for n, e in zip(out_names, exprs)})
-        out = out.reset_index(drop=True)
+    with _obs_span("fallback-agg"):
+        if stmt.grouping_sets is not None:
+            out = _grouping_sets_aggregate(df, exprs, out_names, stmt,
+                                           time_col)
+        elif group_exprs or has_agg:
+            out = _aggregate(df, exprs, out_names, group_exprs, stmt,
+                             time_col)
+        else:
+            out = pd.DataFrame(
+                {n: _eval(e, df, time_col)
+                 for n, e in zip(out_names, exprs)})
+            out = out.reset_index(drop=True)
 
     if stmt.order_by and not (group_exprs or has_agg):
         keys, ascending = [], []

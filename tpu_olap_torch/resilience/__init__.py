@@ -16,10 +16,11 @@ breaker and generalized fault injection, as in the JAX package.
              wal-write / wal-replay / compact / spill-write /
              manifest-swap / store-load / wal-truncate / stage-*)
 
-The per-query deadline and its wedge recovery, and the pipelined mode's
-use of `AdmissionController.pipeline_slot`, come with ROADMAP queue A
-item 12b; the metrics and events of the admission controller and the
-breaker come with item 14.
+`QueryDeadlineExceeded` (the per-query deadline's error, code
+"deadline_exceeded", HTTP 504) lives in executor.runner, as in the JAX
+package, and is exported here too (loaded on first use: the runner
+imports this package). The admission controller and the breaker report
+into the runner's metrics registry and event log.
 """
 
 from tpu_olap_torch.resilience.admission import AdmissionController
@@ -33,6 +34,13 @@ from tpu_olap_torch.resilience.faults import FaultInjector, maybe_inject
 __all__ = [
     "AdmissionController", "BreakerOpen", "CircuitBreaker",
     "DeviceFailure", "FaultInjector", "IngestBackpressure",
-    "InternalError", "QueryError", "QueryShed", "UserError",
-    "maybe_inject",
+    "InternalError", "QueryDeadlineExceeded", "QueryError", "QueryShed",
+    "UserError", "maybe_inject",
 ]
+
+
+def __getattr__(name):
+    if name == "QueryDeadlineExceeded":
+        from tpu_olap_torch.executor.runner import QueryDeadlineExceeded
+        return QueryDeadlineExceeded
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -19,11 +19,9 @@ production broker does:
   line and timing out anyway — the difference between a 429 in
   microseconds and a 504 after `query_deadline_s`.
 
-Queue depth and the service-time estimate are in `snapshot()`. The JAX
-package's metrics (queue depth, queue wait, sheds by reason) and its
-`shed` event come with the metrics registry and the event log (ROADMAP
-queue A item 14). `pipeline_slot` and `reset_pipeline` are copied whole;
-the pipelined two-stage mode that calls them comes with item 12b.
+Queue depth, queue wait, and shed counts are first-class metrics
+(`tpu_olap_admission_queue_depth`, `tpu_olap_admission_queue_wait_ms`,
+`tpu_olap_queries_shed_total{reason=...}`).
 
 Slot acquisition is not strictly FIFO (condition wake order, and a
 fresh arrival can take a just-freed slot before a woken waiter) — the
@@ -53,9 +51,10 @@ class AdmissionController:
     """
 
     def __init__(self, max_inflight: int, queue_limit: int,
-                 pipeline_depth: int = 0):
+                 metrics=None, events=None, pipeline_depth: int = 0):
         self.max_inflight = int(max_inflight)
         self.queue_limit = max(0, int(queue_limit))
+        self._events = events  # obs.events.EventLog (optional)
         self._cond = threading.Condition()
         self._inflight = 0
         self._queued = 0
@@ -70,6 +69,26 @@ class AdmissionController:
         self.pipeline_depth = max(0, int(pipeline_depth))
         self._p_cond = threading.Condition()
         self._p_inflight = 0
+        self._m_shed = self._m_depth = self._m_wait = None
+        self._m_pipeline = None
+        if metrics is not None:
+            from tpu_olap_torch.obs.metrics import QUEUE_WAIT_BUCKETS_MS
+            self._m_shed = metrics.counter(
+                "queries_shed_total",
+                "Queries shed by admission control.", ("reason",))
+            self._m_depth = metrics.gauge(
+                "admission_queue_depth",
+                "Callers currently queued for a dispatch slot.")
+            self._m_wait = metrics.histogram(
+                "admission_queue_wait_ms",
+                "Wait for a dispatch slot (admitted queries only).",
+                buckets=QUEUE_WAIT_BUCKETS_MS)
+            self._m_pipeline = metrics.gauge(
+                "pipeline_inflight",
+                "Dispatches between stage-1 enqueue and stage-2 "
+                "completion (pipelined execution occupancy).")
+            self._m_depth.set(0)
+            self._m_pipeline.set(0)
 
     # ------------------------------------------------------------ stats
 
@@ -94,9 +113,23 @@ class AdmissionController:
         ahead = self._queued + 1
         return ahead * self._service_ewma_s / max(1, self.max_inflight)
 
-    @staticmethod
-    def _shed(reason: str, msg: str):
+    def _shed(self, reason: str, msg: str):
+        # metric inc only (a few dict ops): _shed fires while the caller
+        # holds self._cond, so the event emission — which may write to
+        # the JSONL file sink — happens in slot(), outside the lock
+        if self._m_shed is not None:
+            self._m_shed.inc(reason=reason)
         raise QueryShed(msg, reason=reason)
+
+    def _emit_shed(self, e: QueryShed):
+        """Shed event, emitted OUTSIDE self._cond: a slow event-log file
+        sink must not stall every other thread's admission. A shed query
+        never reaches QueryRunner.record(), so this event IS its entry
+        in the structured log."""
+        if self._events is not None:
+            from tpu_olap_torch.obs.trace import current_query_id
+            self._events.emit("shed", reason=e.reason, detail=str(e),
+                              query_id=current_query_id())
 
     # ------------------------------------------------------------- slot
 
@@ -112,7 +145,13 @@ class AdmissionController:
         if self.max_inflight <= 0 or getattr(self._local, "held", 0):
             yield
             return
-        self._admit(budget_s)
+        try:
+            waited_ms = self._admit(budget_s)
+        except QueryShed as e:
+            self._emit_shed(e)
+            raise
+        if self._m_wait is not None:
+            self._m_wait.observe(waited_ms)
         self._local.held = 1
         t0 = time.perf_counter()
         try:
@@ -146,6 +185,8 @@ class AdmissionController:
                     f"the query's deadline budget "
                     f"{budget_s * 1000:.0f} ms")
             self._queued += 1
+            if self._m_depth is not None:
+                self._m_depth.set(self._queued)
             t0 = time.perf_counter()
             deadline = None if budget_s is None else t0 + budget_s
             try:
@@ -161,6 +202,8 @@ class AdmissionController:
                     self._cond.wait(timeout)
             finally:
                 self._queued -= 1
+                if self._m_depth is not None:
+                    self._m_depth.set(self._queued)
             self._inflight += 1
             return (time.perf_counter() - t0) * 1000
 
@@ -179,7 +222,11 @@ class AdmissionController:
         if self.pipeline_depth <= 0 or getattr(self._local, "p_held", 0):
             yield
             return
-        self._p_admit(budget_s)
+        try:
+            self._p_admit(budget_s)
+        except QueryShed as e:
+            self._emit_shed(e)  # outside the cond, like slot()
+            raise
         self._local.p_held = 1
         try:
             yield
@@ -189,6 +236,8 @@ class AdmissionController:
                 # clamp: reset_pipeline may have reclaimed this slot
                 # while its (abandoned) holder was still running
                 self._p_inflight = max(0, self._p_inflight - 1)
+                if self._m_pipeline is not None:
+                    self._m_pipeline.set(self._p_inflight)
                 self._p_cond.notify()
 
     def reset_pipeline(self):
@@ -204,6 +253,8 @@ class AdmissionController:
         with self._p_cond:
             if self._p_inflight:
                 self._p_inflight = 0
+                if self._m_pipeline is not None:
+                    self._m_pipeline.set(0)
                 self._p_cond.notify_all()
 
     def _p_admit(self, budget_s: float | None):
@@ -221,3 +272,5 @@ class AdmissionController:
                             "in-flight pipeline slot")
                 self._p_cond.wait(timeout)
             self._p_inflight += 1
+            if self._m_pipeline is not None:
+                self._m_pipeline.set(self._p_inflight)

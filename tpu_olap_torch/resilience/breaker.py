@@ -19,12 +19,9 @@ query already knew. The breaker makes that knowledge shared state:
   healer's job, so an open breaker costs callers microseconds, not
   trial-query deadlines.
 
-`state` reads the state (STATE_VALUES maps it to the JAX package's
-`breaker_state` gauge values); `trips_total` and `failures_total`
-count. The JAX package's gauge, transition counter
-and `breaker` events come with the metrics registry and the event log
-(ROADMAP queue A item 14). `failure_threshold <= 0` disables the breaker
-entirely.
+State is exported as `tpu_olap_breaker_state` (0=closed, 1=half_open,
+2=open) plus a `tpu_olap_breaker_transitions_total{state=...}` counter.
+`failure_threshold <= 0` disables the breaker entirely.
 """
 
 from __future__ import annotations
@@ -32,19 +29,21 @@ from __future__ import annotations
 import threading
 import time
 
+from tpu_olap_torch.obs.metrics import BREAKER_STATE_VALUES as STATE_VALUES
 from tpu_olap_torch.resilience.errors import BreakerOpen
 
 CLOSED, HALF_OPEN, OPEN = "closed", "half_open", "open"
-# the JAX package's obs.metrics.BREAKER_STATE_VALUES
-STATE_VALUES = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
 
 class CircuitBreaker:
     def __init__(self, failure_threshold: int, cooldown_s: float,
-                 probe=None):
+                 probe=None, metrics=None, events=None):
         self.failure_threshold = int(failure_threshold)
         self.cooldown_s = max(0.05, float(cooldown_s))
         self.probe = probe          # () -> bool; set by the runner
+        self._events = events       # obs.events.EventLog (optional)
+        self._pending_events: list = []  # emitted outside self._lock
+        self._emit_lock = threading.Lock()  # flushers, in pop order
         self._lock = threading.Lock()
         self._state = CLOSED
         self._consecutive = 0
@@ -53,6 +52,15 @@ class CircuitBreaker:
         self._wake = threading.Event()  # close() cancels a healer wait
         self.failures_total = 0
         self.trips_total = 0
+        self._m_state = self._m_trans = None
+        if metrics is not None:
+            self._m_state = metrics.gauge(
+                "breaker_state",
+                "Device circuit breaker (0=closed,1=half_open,2=open).")
+            self._m_trans = metrics.counter(
+                "breaker_transitions_total",
+                "Breaker state transitions.", ("state",))
+            self._m_state.set(0)
 
     @property
     def enabled(self) -> bool:
@@ -64,7 +72,38 @@ class CircuitBreaker:
 
     def _set_state(self, state: str):
         # caller holds self._lock
-        self._state = state
+        if state == self._state:
+            return
+        prev, self._state = self._state, state
+        if self._m_state is not None:
+            self._m_state.set(STATE_VALUES[state])
+        if self._m_trans is not None:
+            self._m_trans.inc(state=state)
+        if self._events is not None:
+            # queued, not emitted: emit may write to the JSONL file
+            # sink, and a hung sink must not stall every dispatch's
+            # record_success/record_failure behind our lock — callers
+            # flush after releasing it (_flush_events)
+            self._pending_events.append(
+                {"state": state, "previous": prev,
+                 "consecutive_failures": self._consecutive})
+
+    def _flush_events(self):
+        """Emit transitions queued by _set_state, OUTSIDE self._lock."""
+        # unlocked empty probe: the common path (no transition) must not
+        # pay a second lock round-trip per dispatch. A racing append is
+        # never lost — the appending mutator flushes after its own
+        # mutation.
+        if self._events is None or not self._pending_events:
+            return
+        # _emit_lock serializes pop+emit across concurrent flushers, so
+        # the log's transition order always matches the state machine's
+        # (emit only enqueues to the async sink — never file I/O here)
+        with self._emit_lock:
+            with self._lock:
+                pending, self._pending_events = self._pending_events, []
+            for p in pending:
+                self._events.emit("breaker", **p)
 
     # ------------------------------------------------------------ events
 
@@ -91,6 +130,7 @@ class CircuitBreaker:
             self._consecutive = 0
             if self._state == HALF_OPEN:
                 self._set_state(CLOSED)
+        self._flush_events()
 
     def record_failure(self, kind: str = "failure"):
         """A terminal device failure (retries exhausted, deadline hit,
@@ -104,6 +144,7 @@ class CircuitBreaker:
             if self._state != OPEN and \
                     self._consecutive >= self.failure_threshold:
                 self._trip_locked()
+        self._flush_events()
 
     def _trip_locked(self):
         self.trips_total += 1
@@ -127,6 +168,7 @@ class CircuitBreaker:
         with self._lock:
             self._consecutive = 0
             self._set_state(CLOSED)
+        self._flush_events()
         self._wake.set()
 
     # ------------------------------------------------------------ healer
@@ -152,6 +194,7 @@ class CircuitBreaker:
                     return
                 if self._state == OPEN:
                     self._set_state(HALF_OPEN)
+            self._flush_events()
             ok = False
             try:
                 ok = bool(self.probe()) if self.probe is not None \
@@ -171,5 +214,6 @@ class CircuitBreaker:
                         self._set_state(OPEN)
                 # OPEN here = re-tripped mid-probe; CLOSED = someone
                 # closed us externally — either way the loop top decides
+            self._flush_events()
             if healed:
                 return

@@ -8,8 +8,10 @@ text. The fallback interpreter's refusal (planner.fallback.FallbackError)
 subclasses it, the cube DDL's refusals raise `UserError`, admission
 sheds `QueryShed`, the open breaker refuses with `BreakerOpen`, a full
 delta sheds appends with `IngestBackpressure`; `DeviceFailure` and
-`InternalError` complete the JAX package's tree. The deadline's
-`QueryDeadlineExceeded` comes with ROADMAP queue A item 12b.
+`InternalError` complete the JAX package's tree. The per-query
+deadline's `QueryDeadlineExceeded` is defined where the JAX package
+defines it, in executor.runner, and exported by the package
+(resilience.QueryDeadlineExceeded).
 """
 
 from __future__ import annotations

@@ -41,8 +41,8 @@ fault sites as they are. Its metrics (`ingest_rows_total`,
 `delta_rows`, `wal_bytes`, `compactions_total`, ...), its `ingest` /
 `compact` / `checkpoint` / `wal_replay` / `store_load` events, the
 `checkpoint` span, `sys.checkpoints` and `GET /debug/ingest` come with
-the metrics registry, the event log, the tracer and the HTTP surface
-(ROADMAP queue A item 14);
+the rest of ROADMAP queue A item 14 (the metrics registry, the event log
+and the tracer are ported; the ingest path does not feed them yet);
 until then `TableIngestState` keeps the compactor's errors and the last
 store load's fallbacks, and `snapshot()` reads the rest.
 """
