@@ -199,13 +199,43 @@ Phases, each printing its own line; any failure exits nonzero:
      EXPLAIN ANALYZE of q3.2: its spans with their ms (the root's
      children sum to within its total), counters() and the registry's
      lock-wait, transfer and deadline lines.
+  15. serving and observability, on engines over the SF1 segments, before
+     the SF1 engine closes: (a) a QueryServer on 127.0.0.1:0 over a
+     CUDA engine; the 13 over POST /sql (the counts set to 0 just
+     before: B1 once per statement, packed, one copy each), every answer
+     == phase 4's frame (assert_frame_parity, and the JSON rows exactly),
+     each X-Query-Id in sys.queries and GET /debug/queries; q2.1's native
+     query over POST /druid/v2 == Engine.execute_ir; each query's p50
+     over HTTP against Engine.sql's (5 runs each, in
+     turns), and a kept-alive GET /healthz with TCP_NODELAY (as served)
+     against Nagle on; (b) 8 HTTP clients x 3 rounds of the 13 (own order
+     each, keep-alive): statements/s, p50/p99, every answer == phase 4's
+     rows, B1 once per statement, while a thread scrapes GET /metrics
+     (scrape ms; the text parsed in the Prometheus grammar of
+     tests/test_observability.py); (c) recompiles_total +1 for a new
+     structure and +0 for its other literals, sys.devices' hbm_bytes ==
+     the ledger's bytes_in_use <= torch.cuda.memory_allocated, every
+     sys.* table answers, history unchanged over them; (d) POST
+     /debug/profile on a handler thread while a client runs q2.1 over
+     HTTP (the client starts once the session is live): every launch
+     call past the session's obs.profile.SESSION_PRIMERS has its kernel
+     (by correlation id) and B1 sits under a q2.1 query id (up to
+     PROFILE_TRIES captures); a profile_dir engine writes one
+     trace per statement, each with B1 under the statement's id; then
+     POST /ingest of 32,768 rows that the next POST /sql counts; (e) on
+     an engine of its own, after a 20-statement q2.1 baseline, 0.2 s at
+     the stage-transfer fault site fires latency_drift attributed to
+     "transfer", shown in sys.alerts and GET /debug/health, cleared
+     after sentinel_clear_after_s; (f) a 1 s torch.cuda._sleep spin at
+     the dispatch site under a 0.5 s deadline: POST /sql 504, GET
+     /readyz 503 while it spins, and after it q2.1 200 and /readyz 200.
   Every engine the smoke builds has fallback_on_device_failure off
   (new_engine), so a failure on the card's path fails the smoke instead
   of being served by the pandas interpreter; (e) turns it on only for
   the serve while the breaker is open.
 Every engine runs pipelined (EngineConfig.pipeline_depth 4) unless a
 phase says otherwise. The phases run in the order 1-4, 10, 5-8, 11, 12,
-13, 14, 9. Every torch.profiler
+13, 14, 15, 9. Every torch.profiler
 reading stands only when
 its profile holds one device activity for each kernel launch, copy and
 fill the host issued in it (`profiled`): the profiler now and then drops
@@ -220,6 +250,8 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3181,6 +3213,534 @@ def pipeline_phase(seg, tables, frames, reps, tag):
           f" s", flush=True)
 
 
+# -- phase 15: serving and observability on the card ----------------------
+
+HTTP_CLIENTS = 8                  # phase 15 (b): concurrent HTTP clients
+HTTP_ROUNDS = 3                   # the 13 per client, in its own order
+HTTP_REPS = 5                     # (a): timed runs per query and surface
+HTTP_APPEND_ROWS = 32_768         # (a): rows of the POST /ingest batch
+CAPTURE_MS = 1500                 # (d): the torch.profiler window
+DRIFT_LATENCY_S = 0.2             # (e): injected stage-transfer latency
+DRIFT_BASELINE = 20               # (e): q2.1 runs before the injection
+READY_SPIN_S = 1.0                # (f): the wedge spin under /readyz
+# one line of the Prometheus text format (tests/test_observability.py)
+METRIC_LINE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r"(\{[a-zA-Z_][a-zA-Z0-9_]*=\"[^\"]*\""
+    r"(,[a-zA-Z_][a-zA-Z0-9_]*=\"[^\"]*\")*\})?"
+    r" (?P<value>[^ ]+)$")
+SYS_TABLES = ("tables", "segments", "queries", "query_templates",
+              "metrics", "caches", "cubes", "checkpoints", "devices",
+              "metrics_history", "alerts")
+
+
+class Http:
+    """One keep-alive HTTP/1.1 connection to a QueryServer."""
+
+    def __init__(self, srv):
+        import http.client
+        self.conn = http.client.HTTPConnection(srv.host, srv.port,
+                                               timeout=120)
+
+    def call(self, method, path, payload=None):
+        """(status, headers, parsed body or text)."""
+        body = None if payload is None else json.dumps(payload).encode()
+        self.conn.request(method, path, body=body,
+                          headers={"Content-Type": "application/json"})
+        r = self.conn.getresponse()
+        data = r.read().decode()
+        try:
+            data = json.loads(data)
+        except json.JSONDecodeError:
+            pass
+        return r.status, dict(r.getheaders()), data
+
+    def sql(self, q):
+        """(status, query id, body) of POST /sql."""
+        status, hdrs, body = self.call("POST", "/sql", {"query": q})
+        return status, hdrs.get("X-Query-Id"), body
+
+    def close(self):
+        self.conn.close()
+
+
+def http_frame(body):
+    import pandas as pd
+    return pd.DataFrame(body["rows"], columns=body["columns"])
+
+
+def wire_rows(frame) -> list:
+    """A frame as POST /sql's rows come back (the server's _jsonable and
+    a JSON round trip)."""
+    from tpu_olap_torch.api.server import _jsonable
+    return json.loads(json.dumps(_jsonable(frame.to_dict("records")),
+                                 default=str))
+
+
+def check_metrics_text(text: str) -> int:
+    """Fail unless every line of a /metrics scrape parses in the
+    Prometheus text format with a finite value; the number of samples."""
+    import math
+    n = 0
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("#"):
+            if not re.match(r"^# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* ",
+                            line):
+                fail(f"15 (b): bad /metrics comment line {line!r}")
+            continue
+        m = METRIC_LINE.match(line)
+        if not m or not math.isfinite(float(m.group("value"))):
+            fail(f"15 (b): bad /metrics line {line!r}")
+        n += 1
+    return n
+
+
+def trace_kernels(path, primers=0) -> tuple:
+    """(host launch calls, [positions in launch order of the launches
+    whose kernel the trace lacks], {query id: [kernel names]}) of an
+    exported torch.profiler trace. A launch and its kernel share a
+    correlation id."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launches = sorted((e for e in events if e.get("ph") == "X" and str(
+        e.get("name", "")).startswith(("cudaLaunchKernel",
+                                       "cuLaunchKernel"))),
+                      key=lambda e: e["ts"])
+    kernels = [e for e in events
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    corr = {(e.get("args") or {}).get("correlation") for e in kernels}
+    missing = [i for i, e in enumerate(launches)
+               if (e.get("args") or {}).get("correlation") not in corr]
+    by_q: dict = {}
+    for e in kernels:
+        q = (e.get("args") or {}).get("query_id")
+        if q is not None:
+            by_q.setdefault(q, []).append(e["name"])
+    return len(launches), missing, by_q
+
+
+def serving_phase(seg, tables, frames, tag):
+    """Phase 15: the HTTP server, the sys tables, the registries, the
+    torch.profiler capture, the sentinel and /readyz, on the SF1
+    segments."""
+    import random
+    import threading
+
+    import numpy as np
+    import pandas as pd
+    import torch
+    from tpu_olap_torch.api.server import QueryServer
+    from tpu_olap_torch.bench import ssb
+    from tpu_olap_torch.bench.parity import assert_frame_parity
+    from tpu_olap_torch.kernels import fused_reduce as fr
+    from tpu_olap_torch.obs import profile
+    from tpu_olap_torch.resilience.faults import FaultInjector
+    names = list(ssb.QUERIES)
+    t_phase = time.perf_counter()
+    eng = ssb_engine(seg, tables, telemetry_interval_s=0.5)
+    srv = QueryServer(eng).start()
+    cli = Http(srv)
+    try:
+        for q in ssb.QUERIES.values():
+            eng.sql(q)        # warm: plans, stacks
+
+        # (a) the 13 over POST /sql, the counts set to 0 just before
+        fr.launches = 0
+        h0 = len(eng.history)
+        qids = {}
+        for n in names:
+            status, qid, body = cli.sql(ssb.QUERIES[n])
+            if status != 200 or not qid:
+                fail(f"15 (a) {n}: HTTP {status}, X-Query-Id {qid}: "
+                     f"{str(body)[:300]}")
+            assert_frame_parity(http_frame(body), frames[n],
+                                label=f"15 (a) {n} over HTTP")
+            if body["rows"] != wire_rows(frames[n]):
+                fail(f"15 (a) {n}: the rows over HTTP differ from phase "
+                     f"5's frame")
+            qids[n] = qid
+        launched = fr.launches
+        recs = list(eng.history)[h0:]
+        if launched != len(names) or any(
+                r.get("route") != "packed" or r.get("host_copies") != 1
+                for r in recs):
+            fail(f"15 (a): B1 launches {launched} for {len(names)} "
+                 f"statements; routes {[r.get('route') for r in recs]}")
+        known = set(eng.sql("SELECT query_id FROM sys.queries")["query_id"])
+        _, _, dbg = cli.call("GET", "/debug/queries?n=128")
+        missing = [n for n, q in qids.items()
+                   if q not in known or q not in json.dumps(dbg)]
+        if missing:
+            fail(f"15 (a): X-Query-Id of {missing} not in sys.queries and "
+                 f"/debug/queries")
+        # q2.1's native query over /druid/v2
+        ir = eng.planner.plan(ssb.QUERIES["q2.1"]).query.to_json()
+        status, _, druid = cli.call("POST", "/druid/v2", ir)
+        want = json.loads(json.dumps(eng.execute_ir(ir).druid,
+                                     default=str))
+        if status != 200 or druid != want:
+            fail(f"15 (a) /druid/v2: HTTP {status}, "
+                 f"{len(druid) if isinstance(druid, list) else druid} "
+                 f"rows against Engine.execute_ir's {len(want)}")
+        # a kept-alive request's round trip with TCP_NODELAY (as served)
+        # and with Nagle's algorithm on (the JAX package's server), in
+        # turns; the option applies to the connections accepted after it
+        handler = srv.httpd.RequestHandlerClass
+        hz = {True: [], False: []}
+        for nodelay in (True, False, True, False):
+            handler.disable_nagle_algorithm = nodelay
+            c = Http(srv)
+            for _ in range(20):
+                t = time.perf_counter()
+                c.call("GET", "/healthz")
+                hz[nodelay].append((time.perf_counter() - t) * 1000)
+            c.close()
+        handler.disable_nagle_algorithm = True
+        # p50 of each query over HTTP against Engine.sql, in turns
+        ts = {(s, n): [] for s in ("http", "sql") for n in names}
+        for r in range(HTTP_REPS):
+            for s in (("http", "sql") if r % 2 == 0 else ("sql", "http")):
+                for n in names:
+                    t = time.perf_counter()
+                    if s == "http":
+                        cli.sql(ssb.QUERIES[n])
+                    else:
+                        eng.sql(ssb.QUERIES[n])
+                    ts[(s, n)].append((time.perf_counter() - t) * 1000)
+        p50 = {k: float(np.median(v)) for k, v in ts.items()}
+        over = [p50[("http", n)] - p50[("sql", n)] for n in names]
+        print(f"[15 http] 13/13 over POST /sql == phase 4's frames "
+              f"(assert_frame_parity and the rows exactly), each with an "
+              f"X-Query-Id that sys.queries and /debug/queries show; B1 "
+              f"{launched} launches for the 13, packed, one copy each; "
+              f"q2.1 over /druid/v2 == Engine.execute_ir; p50 ms over "
+              f"{HTTP_REPS} runs (HTTP | Engine.sql) "
+              + json.dumps({n: [round(p50[("http", n)], 3),
+                                round(p50[("sql", n)], 3)]
+                            for n in names})
+              + f"; HTTP adds {float(np.median(over)):.3f} ms per "
+              f"statement (median over the 13; {min(over):.3f}-"
+              f"{max(over):.3f}); GET /healthz on a kept-alive connection "
+              f"p50 {np.median(hz[True]):.3f} ms with TCP_NODELAY, "
+              f"{np.median(hz[False]):.3f} ms with Nagle on {tag}",
+              flush=True)
+
+        # (b) 8 clients x 3 rounds of the 13, /metrics scraped meanwhile
+        want_rows = {n: wire_rows(frames[n]) for n in names}
+        lat, errs, scrapes = [], [], []
+        done = threading.Event()
+        fr.launches = 0
+        h0 = len(eng.history)
+
+        def client(i):
+            c = Http(srv)
+            order = names[:]
+            random.Random(i).shuffle(order)
+            try:
+                for _ in range(HTTP_ROUNDS):
+                    for n in order:
+                        t = time.perf_counter()
+                        status, _, body = c.sql(ssb.QUERIES[n])
+                        lat.append((n, (time.perf_counter() - t) * 1000))
+                        if status != 200 or body["rows"] != want_rows[n]:
+                            errs.append(f"{n}: HTTP {status}")
+            except Exception as ex:  # noqa: BLE001 — fails the phase
+                errs.append(f"{type(ex).__name__}: {ex}")
+            finally:
+                c.close()
+
+        def scraper():
+            c = Http(srv)
+            try:
+                while not done.is_set():
+                    t = time.perf_counter()
+                    status, hdrs, text = c.call("GET", "/metrics")
+                    scrapes.append(((time.perf_counter() - t) * 1000,
+                                    status, text))
+                    time.sleep(0.1)
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(HTTP_CLIENTS)]
+        sc = threading.Thread(target=scraper)
+        t = time.perf_counter()
+        sc.start()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t
+        done.set()
+        sc.join(timeout=30)
+        n_stmt = HTTP_CLIENTS * HTTP_ROUNDS * len(names)
+        recs = list(eng.history)[h0:]
+        if errs or len(lat) != n_stmt:
+            fail(f"15 (b): {len(lat)} of {n_stmt} answered; {errs[:3]}")
+        if fr.launches != n_stmt or any(r.get("host_copies") != 1
+                                        for r in recs):
+            fail(f"15 (b): B1 launches {fr.launches} for {n_stmt} "
+                 f"statements")
+        if not scrapes or any(s[1] != 200 for s in scrapes):
+            fail(f"15 (b): /metrics scrapes {[s[1] for s in scrapes]}")
+        samples = check_metrics_text(scrapes[-1][2])
+        sms = [s[0] for s in scrapes]
+        all_ms = [ms for _, ms in lat]
+        by_q = {n: [ms for m, ms in lat if m == n] for n in names}
+        print(f"[15 clients] {HTTP_CLIENTS} HTTP clients x {HTTP_ROUNDS} "
+              f"rounds of the 13 (own order each, keep-alive), {n_stmt} "
+              f"statements in {wall:.3f} s = {n_stmt / wall:.1f} "
+              f"statements/s; every answer == phase 4's rows, B1 once per "
+              f"statement, one copy each; p50 {np.percentile(all_ms, 50):.3f}"
+              f" p99 {np.percentile(all_ms, 99):.3f} ms; per-query p50/p99 "
+              + json.dumps({n: [round(float(np.percentile(v, 50)), 3),
+                                round(float(np.percentile(v, 99)), 3)]
+                            for n, v in by_q.items()})
+              + f"; GET /metrics during the load: {len(scrapes)} scrapes, "
+              f"p50 {np.percentile(sms, 50):.3f} max {max(sms):.3f} ms, "
+              f"{samples} samples, Prometheus grammar ok {tag}", flush=True)
+
+        # (c) the registries
+        rc = eng.metrics.counter("recompiles_total")
+        cms = eng.metrics.counter("compile_ms_total")
+
+        def compiles():
+            return sum(s.value for s in list(rc.series.values()))
+        new_q = ("SELECT p_mfgr, sum(lo_supplycost) AS sc, max(lo_tax) AS "
+                 "mt FROM lineorder WHERE lo_quantity < {} GROUP BY p_mfgr")
+        c0, m0 = compiles(), cms.value()
+        got = eng.sql(new_q.format(17))
+        c1, m1 = compiles(), cms.value()
+        eng.sql(new_q.format(23))
+        c2 = compiles()
+        kinds = {k[0]: v.value for k, v in list(rc.series.items())}
+        if (c1 - c0, c2 - c1) != (1, 0) or m1 <= m0 or len(got) == 0:
+            fail(f"15 (c): recompiles_total rose {c1 - c0} for a new "
+                 f"structure and {c2 - c1} for its other literals "
+                 f"(compile_ms_total {m0} -> {m1}); by kind {kinds}")
+        h = len(eng.history)
+        sys_rows = {}
+        for name in SYS_TABLES:
+            sys_rows[name] = len(eng.sql(f"SELECT * FROM sys.{name}"))
+        dev = eng.sql("SELECT hbm_bytes, device, platform FROM sys.devices")
+        led = eng.runner._ledger.bytes_in_use
+        alloc = torch.cuda.memory_allocated()
+        hbm = int(dev["hbm_bytes"].iloc[0])
+        if len(eng.history) != h or len(dev) != 1 or hbm != led \
+                or hbm > alloc:
+            fail(f"15 (c): history {h} -> {len(eng.history)} over the sys "
+                 f"statements; sys.devices {dev.to_dict('records')} vs "
+                 f"ledger {led}, memory_allocated {alloc}")
+        print(f"[15 registries] recompiles_total +{c1 - c0} for a new "
+              f"structure ({m1 - m0:.1f} ms of NVRTC in compile_ms_total), "
+              f"+{c2 - c1} for the same structure with other literals; by "
+              f"kind {json.dumps(kinds)}; sys.devices: {dev['device'][0]} "
+              f"({dev['platform'][0]}) hbm_bytes {hbm} == the ledger's "
+              f"bytes_in_use, <= torch.cuda.memory_allocated {alloc}; every "
+              f"sys table answers (rows {json.dumps(sys_rows)}), history "
+              f"unchanged over them {tag}", flush=True)
+
+        # (d) a capture over HTTP while a client runs q2.1
+        q21 = ssb.QUERIES["q2.1"]
+        for attempt in range(PROFILE_TRIES):
+            ran, box = [], {}
+
+            def capture():
+                c = Http(srv)
+                try:
+                    box["r"] = c.call("POST",
+                                      f"/debug/profile?ms={CAPTURE_MS}")
+                finally:
+                    c.close()
+
+            def q21_client(until):
+                c = Http(srv)
+                try:
+                    while time.perf_counter() < until:
+                        status, qid, _ = c.sql(q21)
+                        ran.append((status, qid))
+                        time.sleep(0.02)
+                finally:
+                    c.close()
+            cap_t = threading.Thread(target=capture)
+            t0 = time.perf_counter()
+            cap_t.start()
+            # the client starts once the session is live, after its
+            # primer kernels (obs.profile.SESSION_PRIMERS)
+            while not profile.capture_active():
+                if time.perf_counter() - t0 > 10:
+                    fail("15 (d): the capture did not start in 10 s")
+                time.sleep(0.005)
+            # the client's launches end well inside the window
+            th = threading.Thread(target=q21_client, args=(
+                time.perf_counter() + CAPTURE_MS / 1000.0 - 0.4,))
+            th.start()
+            th.join(timeout=60)
+            cap_t.join(timeout=60)
+            status, _, cap = box.get("r", (None, None, {}))
+            if status != 200 or not cap.get("ok"):
+                fail(f"15 (d): the capture degraded: HTTP {status} {cap}")
+            path = os.path.join(cap["trace_dir"], profile.TRACE_FILE)
+            n_launch, missing, by_q = trace_kernels(path)
+            primers = profile.SESSION_PRIMERS
+            lost = [i for i in missing if i >= primers]
+            ok_ids = {q for s, q in ran if s == 200}
+            under = {q for q, ks in by_q.items()
+                     if q in ok_ids and GEN_KERNEL in ks}
+            if n_launch > primers and not lost and under:
+                break
+            print(f"[15 profile] capture {attempt + 1}: {n_launch} launch "
+                  f"calls, {len(lost)} past the session's {primers} "
+                  f"primers without their kernel (positions {lost[:24]}), "
+                  f"B1 under {len(under)} of {len(ok_ids)} q2.1 ids; "
+                  f"again", flush=True)
+        else:
+            fail(f"15 (d): no complete capture with B1 under a q2.1 id in "
+                 f"{PROFILE_TRIES} tries")
+        pdir = tempfile.mkdtemp(prefix="chip_smoke-profile-")
+        pe = ssb_engine(seg, tables, profile_dir=pdir,
+                        telemetry_enabled=False)
+        try:
+            per_stmt = []
+            for n in ("q2.1", "q3.1"):
+                pe.sql(ssb.QUERIES[n])
+                rec = pe.history[-1]
+                n_l, miss, pq = trace_kernels(os.path.join(
+                    rec["profile_trace"], profile.TRACE_FILE))
+                if GEN_KERNEL not in pq.get(rec["query_id"], ()):
+                    fail(f"15 (d): {n}'s profile_dir trace lacks B1 under "
+                         f"{rec['query_id']}: {pq}; {n_l} launch calls, "
+                         f"those at {miss[:80]} without their kernel")
+                per_stmt.append(f"{n} {rec['query_id']}")
+        finally:
+            pe.close()
+            shutil.rmtree(pdir, ignore_errors=True)
+        print(f"[15 profile] POST /debug/profile?ms={CAPTURE_MS} on a "
+              f"handler thread while a client ran q2.1 {len(ran)} times "
+              f"(capture {attempt + 1}): "
+              f"{n_launch} launch calls, each past the session's "
+              f"{primers} primers with its kernel (correlation ids; "
+              f"{len(missing)} primers' kernels lost), B1 "
+              f"({GEN_KERNEL}) under {len(under)} of the "
+              f"{len(ok_ids)} q2.1 query ids; profile_dir: one trace per "
+              f"statement, each with B1 under its id ({', '.join(per_stmt)})"
+              f" {tag}", flush=True)
+
+        # (a) continued: POST /ingest, and the next /sql sees the rows
+        rng = np.random.default_rng(2)
+        d = tables["date"]
+        lo = ssb._gen_lineorder(
+            rng, HTTP_APPEND_ROWS, len(tables["customer"]),
+            len(tables["supplier"]), len(tables["part"]),
+            d.d_datekey[d.d_year == 1998].to_numpy(),
+            start_key=int(tables["lineorder"].lo_orderkey.max()) + 1)
+        batch = ssb.denormalize({**tables, "lineorder": lo})
+        rows = json.loads(batch.to_json(orient="records",
+                                        date_format="iso"))
+        count_q = "SELECT count(*) AS n, sum(lo_revenue) AS r FROM lineorder"
+        _, _, b0 = cli.sql(count_q)
+        t = time.perf_counter()
+        status, _, ack = cli.call("POST", "/ingest",
+                                  {"table": "lineorder", "rows": rows})
+        ack_s = time.perf_counter() - t
+        _, _, b1 = cli.sql(count_q)
+        n0, r0 = b0["rows"][0]["n"], b0["rows"][0]["r"]
+        n1, r1 = b1["rows"][0]["n"], b1["rows"][0]["r"]
+        if status != 200 or ack.get("rows") != HTTP_APPEND_ROWS \
+                or n1 - n0 != HTTP_APPEND_ROWS \
+                or r1 - r0 != int(batch.lo_revenue.sum()):
+            fail(f"15 (a) /ingest: HTTP {status} {str(ack)[:200]}; count "
+                 f"{n0} -> {n1}, revenue {r0} -> {r1}")
+        print(f"[15 ingest] POST /ingest of {HTTP_APPEND_ROWS} rows "
+              f"acknowledged in {ack_s:.3f} s (delta_rows "
+              f"{ack['delta_rows']}); the next POST /sql counts them: "
+              f"{n0} -> {n1} rows, revenue +{r1 - r0} == the batch's "
+              f"{tag}", flush=True)
+    finally:
+        cli.close()
+        srv.stop()
+
+    # (e) drift attributed to the transfer stage, and (f) /readyz under
+    # a wedge, on an engine of their own
+    rate = spin_rate()
+    wedge = Wedge(rate)
+    aux = ssb_engine(seg, tables, telemetry_interval_s=0.2,
+                     sentinel_min_samples=5, sentinel_clear_after_s=1.0,
+                     dispatch_retries=0)
+    srv = QueryServer(aux).start()
+    cli = Http(srv)
+    try:
+        q21 = ssb.QUERIES["q2.1"]
+        for _ in range(DRIFT_BASELINE):   # the first uploads the stacks
+            cli.sql(q21)
+        inj = FaultInjector(rate=1.0, stages={"stage-transfer"},
+                            latency_s=DRIFT_LATENCY_S)
+        aux.config.fault_injector = inj
+        status, qid, _ = cli.sql(q21)
+        aux.config.fault_injector = None
+        alerts = [a for a in aux.runner.sentinel.active()
+                  if a["kind"] == "latency_drift"]
+        sys_alerts = aux.sql("SELECT kind, stage, status FROM sys.alerts")
+        _, _, health = cli.call("GET", "/debug/health")
+        if status != 200 or inj.faults != 1 or not alerts \
+                or alerts[0]["stage"] != "transfer" \
+                or alerts[0]["query_id"] != qid or health["ok"] \
+                or list(sys_alerts["stage"]) != ["transfer"]:
+            fail(f"15 (e): alerts {alerts}, sys.alerts "
+                 f"{sys_alerts.to_dict('records')}, health {health}")
+        a = alerts[0]
+        t = time.perf_counter()
+        while time.perf_counter() - t < 10:
+            _, _, health = cli.call("GET", "/debug/health")
+            if health["ok"]:
+                break
+            time.sleep(0.1)
+        cleared = time.perf_counter() - t
+        if not health["ok"] or aux.sql(
+                "SELECT status FROM sys.alerts")["status"][0] != "cleared":
+            fail(f"15 (e): the alert did not clear: {health}")
+        print(f"[15 sentinel] {DRIFT_LATENCY_S} s injected at the "
+              f"stage-transfer site after a {DRIFT_BASELINE}-statement "
+              f"baseline: "
+              f"latency_drift on q2.1 attributed to stage "
+              f"'{a['stage']}' ({a['total_ms']} ms against a "
+              f"{a['baseline_ms']} ms baseline, threshold "
+              f"{a['threshold_ms']} ms), in sys.alerts and /debug/health; "
+              f"cleared {cleared:.2f} s later (sentinel_clear_after_s 1.0, "
+              f"telemetry tick 0.2 s) {tag}", flush=True)
+
+        # (f) /readyz during a wedge spin, and after recovery
+        aux.config.fault_injector = wedge
+        aux.config.query_deadline_s = WEDGE_DEADLINE_S
+        cli.sql(q21)           # under the deadline, before the wedge
+        wedge.arm(READY_SPIN_S)
+        t = time.perf_counter()
+        status, _, body = cli.sql(q21)
+        took = time.perf_counter() - t
+        r_code, _, r_body = cli.call("GET", "/readyz")
+        wedge.drain()
+        status2, _, body2 = cli.sql(q21)
+        r2_code, _, r2_body = cli.call("GET", "/readyz")
+        if status != 504 or r_code != 503 or not r_body["wedged"] \
+                or status2 != 200 or r2_code != 200 \
+                or body2["rows"] != wire_rows(frames["q2.1"]):
+            fail(f"15 (f): q2.1 behind the spin HTTP {status} in "
+                 f"{took:.3f} s; /readyz {r_code} {r_body}; after the spin "
+                 f"q2.1 HTTP {status2}, /readyz {r2_code} {r2_body}")
+        print(f"[15 readyz] a {READY_SPIN_S:.0f} s spin at the dispatch "
+              f"site: POST /sql q2.1 504 in {took:.3f} s (deadline "
+              f"{WEDGE_DEADLINE_S} s), /readyz 503 (wedged); after the "
+              f"spin q2.1 200 (re-probed, == phase 4's rows), /readyz 200 "
+              f"{tag}", flush=True)
+    finally:
+        cli.close()
+        srv.stop()
+    print(f"[15 serving] phase 15 took {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=6_000_000,
@@ -3493,6 +4053,12 @@ def main():
     # -- 14. pipeline and deadline ------------------------------------------
     pipeline_phase(seg, tables, {n: frames[("auto", n)] for n in ssb.QUERIES},
                    args.reps, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15. serving and observability --------------------------------------
+    serving_phase(seg, tables, {n: frames[("auto", n)] for n in ssb.QUERIES},
+                  tag)
     gc.collect()
     torch.cuda.empty_cache()
 

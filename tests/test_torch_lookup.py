@@ -102,13 +102,10 @@ def test_drop_table_as_in_jax():
 
 
 def test_engine_surface_left_to_later_items():
-    """The JAX Engine's methods the port still lacks are exactly those of
-    the rest of ROADMAP queue A item 14 (the sys tables, the sentinel's
-    WAL-lag probe); item 12's ingest surface and item 14's tracing,
-    history, counters and SLO accounting are ported."""
+    """The port's Engine lacks no method of the JAX package's Engine:
+    ROADMAP queue A item 14 ported the last two (the sys tables'
+    `_execute_sys_stmt` and the sentinel's `_wal_lag_probe`), and the
+    multi-GPU port (item 13) adds no Engine method."""
     def names(cls):
         return {n for n in dir(cls) if not n.startswith("__")}
-    later = {
-        14: {"_execute_sys_stmt", "_wal_lag_probe"},
-    }
-    assert names(JaxEngine) - names(Engine) == set().union(*later.values())
+    assert names(JaxEngine) - names(Engine) == set()

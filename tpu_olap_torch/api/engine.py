@@ -42,9 +42,18 @@ counts once against the latency SLO — failures that propagate to the
 client at the statement boundary (`_observe_failure`). `EXPLAIN ANALYZE
 <sql>` runs the statement and returns its span tree. A deadline that
 expires (`QueryDeadlineExceeded`) is a device failure: the fallback
-serves it when `fallback_on_device_failure` is set. The `sys.*` tables,
-the HTTP server and the sentinel's WAL-lag probe come with the rest of
-ROADMAP queue A item 14.
+serves it when `fallback_on_device_failure` is set.
+
+The engine answers SQL over its own state through the `sys.*` tables
+(catalog.systables: sys.tables, segments, queries, query_templates,
+metrics, caches, cubes, checkpoints, devices, metrics_history, alerts).
+A statement that reads one (in FROM, a join, a derived table or an
+expression subquery) runs in the fallback interpreter on the host
+(`_execute_sys_stmt`), never on the device, and leaves no trace, history
+record, metric, SLO observation, workload template or cache entry — in
+`sql` and in `sql_batch` alike. `append` takes a W3C `traceparent`. The
+engine wires the regression sentinel's `wal` probe (`_wal_lag_probe`);
+api.server.QueryServer serves it all over HTTP.
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ import time
 import numpy as np
 import pandas as pd
 
-from tpu_olap_torch.catalog import Catalog, StarSchema, TableEntry
+from tpu_olap_torch.catalog import (Catalog, StarSchema, SysTableProvider,
+                                    TableEntry, stmt_uses_sys)
 from tpu_olap_torch.cubes import CubeRegistry
 from tpu_olap_torch.executor.config import EngineConfig
 from tpu_olap_torch.executor.dimplan import UnsupportedDimension
@@ -73,7 +83,8 @@ from tpu_olap_torch.obs.trace import (Trace, current_query_id,
                                       in_nested_execution, nested_execution,
                                       parse_traceparent, span as _span,
                                       use_query_id, use_traceparent)
-from tpu_olap_torch.obs.workload import fingerprint_sql
+from tpu_olap_torch.obs.workload import (fingerprint_sql,
+                                         introspection_execution)
 from tpu_olap_torch.planner import DruidPlanner
 from tpu_olap_torch.planner.cuberewrite import try_serve_cube
 from tpu_olap_torch.planner.fallback import execute_fallback
@@ -140,10 +151,29 @@ class Engine:
         # part of a statement the interpreter serves — route it back
         # through the statement executor (fallback._run_inner_stmt)
         self.catalog.device_runner = self._run_stmt
+        # sys.* virtual datasources (catalog.systables): the engine is
+        # observable through its own SQL; a sys name resolves through
+        # the catalog to a live-state frame served on the interpreter
+        # path with accounting suppressed
+        self.catalog.sys_provider = SysTableProvider(self)
         # materialized rollup cubes (tpu_olap_torch.cubes)
         self.cubes = CubeRegistry(self)
         # real-time ingest: deltas, WALs, the compactor, checkpoints
         self.ingest = IngestManager(self)
+        # the regression sentinel's WAL sync-lag probe, consulted on the
+        # telemetry tick: wired here because the runner, which owns the
+        # sentinel, exists before the ingest manager
+        self.runner.sentinel.add_probe("wal", self._wal_lag_probe)
+
+    def _wal_lag_probe(self) -> dict:
+        """{table: unsynced WAL frames} for tables with live WALs."""
+        out = {}
+        snap = self.ingest.snapshot() or {}
+        for name, st in (snap.get("tables") or {}).items():
+            wal = st.get("wal") if isinstance(st, dict) else None
+            if wal and wal.get("lag_records") is not None:
+                out[name] = int(wal["lag_records"])
+        return out
 
     # ------------------------------------------------------- registration
 
@@ -252,10 +282,19 @@ class Engine:
                            options=dict(options), **pq_fields)
         self.catalog.register(entry)
         # the fresh TableSegments took the next generation, orphaning
-        # both result-cache tiers' entries for this name at key level;
-        # clear_cache purges them eagerly with the resident stacks
+        # both result-cache tiers' entries for this name at key level:
+        # purge them eagerly (a `cache_invalidate` event when there were
+        # any), with the old data's resident stacks and plans
         with self.device_lock:
-            self.runner.clear_cache(name)
+            self.runner.purge_device_state(name)
+        self.runner.result_cache.invalidate_table(name)
+        self.runner.events.emit(
+            "ingest", table=name, accelerated=bool(accelerate),
+            generation=segments.generation if segments is not None
+            else None,
+            rows=segments.num_rows if segments is not None else None,
+            segments=len(segments.segments) if segments is not None
+            else 0)
         # real-time ingest: a first registration with an existing WAL is
         # crash recovery (restore the checkpoint, replay the WAL tail to
         # the acknowledged state); re-registering a live table resets
@@ -268,7 +307,8 @@ class Engine:
         self.cubes.on_table_registered(name)
         return entry
 
-    def append(self, table: str, rows) -> dict:
+    def append(self, table: str, rows,
+               traceparent: str | None = None) -> dict:
         """Real-time append: `rows` (a list of dicts or a DataFrame,
         columns within the table's schema, time under the registered
         time column or ``__time``) land in the table's mutable delta and
@@ -281,10 +321,15 @@ class Engine:
         ``INSERT INTO t (cols) VALUES (...)``.
 
         Returns {table, rows, generation, sealed_generation, delta_rows,
-        watermark, wal_seq}. The JAX package's W3C `traceparent` and the
-        ingest metrics and events come with the rest of ROADMAP queue A
-        item 14."""
-        return self.ingest.append(table, rows)
+        watermark, wal_seq}. A valid W3C `traceparent` is stamped into the
+        ack and the events the append emits; an invalid one is
+        ignored."""
+        tp = parse_traceparent(traceparent)
+        with use_traceparent(tp["traceparent"] if tp else None):
+            ack = self.ingest.append(table, rows)
+        if tp is not None and isinstance(ack, dict):
+            ack.setdefault("traceparent", tp["traceparent"])
+        return ack
 
     def compact_now(self, table: str | None = None):
         """Seal the delta rows into time-partitioned sealed segments, now
@@ -311,10 +356,12 @@ class Engine:
         scheduler's ticker, and close the WALs. The engine stays
         queryable; appends reopen WALs and re-register their graphs on
         demand. Call it before dropping an engine, or its threads
-        outlive it."""
+        outlive it. The telemetry graph stops with the others, and the
+        event log's file sink is flushed."""
         self.ingest.stop()
         self.cubes.stop(join=True)
         self.runner.stages.stop()
+        self.runner.events.flush(2.0)
 
     def register_lookup(self, name: str, mapping: dict):
         """Register a named lookup map (Druid lookup extraction fn). SQL
@@ -367,6 +414,21 @@ class Engine:
         if verb is not None:
             return verb(self), None
         from tpu_olap_torch.planner.sqlparse import parse_sql
+        pre_stmt = None
+        if _SYS_HINT_RE.search(query):
+            # probable sys.* introspection statement: confirm against the
+            # parsed tree (a string literal mentioning "sys." must not
+            # take a user query off the device) and serve it outside the
+            # trace. A parse failure defers to the traced path, so that
+            # the error records like any other bad statement; a confirmed
+            # non-sys parse is reused below.
+            try:
+                pre_stmt = parse_sql(query)
+            except Exception:
+                pre_stmt = None
+            if pre_stmt is not None \
+                    and stmt_uses_sys(pre_stmt, self.catalog):
+                return self._execute_sys_stmt(pre_stmt), None
         self._nested = []
         with self.tracer.trace("sql") as root:
             root.set(sql=query)
@@ -376,7 +438,8 @@ class Engine:
                          parent_span_id=tp["parent_id"])
             try:
                 with root.span("parse"):
-                    stmt = parse_sql(query)
+                    stmt = pre_stmt if pre_stmt is not None \
+                        else parse_sql(query)
                 with root.span("plan") as sp:
                     plan = self.planner.plan_stmt(stmt, query)
                     sp.set(rewritten=plan.rewritten)
@@ -595,6 +658,30 @@ class Engine:
             "legs": leg_metrics}
         return out
 
+    def _execute_sys_stmt(self, stmt) -> pd.DataFrame:
+        """Serve a sys.* introspection statement (catalog.systables) in
+        the fallback interpreter on the host: a sys datasource never
+        dispatches to the device and is never cached, and its execution
+        is accounting-suppressed — no trace, no history record, no metric
+        or SLO observation, no workload template — so introspection can
+        never recurse into its own stats. The statement still gets the
+        planner's normalization passes, so aliases, windows over groups
+        and expression simplification behave as in any other fallback
+        statement."""
+        from tpu_olap_torch.obs.trace import detached_trace
+        from tpu_olap_torch.planner.exprutil import simplify_stmt
+        from tpu_olap_torch.planner.plan import _apply_windows_over_groups
+        from tpu_olap_torch.planner.sqlparse import UnionStmt
+        # detached_trace: a sys statement inside a live trace (an
+        # sql_batch submission) must not leak its spans into that trace
+        with introspection_execution(), nested_execution(), \
+                detached_trace():
+            stmt = self.planner._resolve_aliases(stmt)
+            stmt = _apply_windows_over_groups(stmt)
+            if not isinstance(stmt, UnionStmt):
+                stmt = simplify_stmt(stmt)
+            return execute_fallback(stmt, self.catalog, self.config)
+
     def _run_stmt(self, stmt) -> pd.DataFrame:
         """Execute one parsed statement end to end (device path when
         rewritable, else the fallback) — the planner's subquery executor
@@ -655,8 +742,21 @@ class Engine:
             for i, q in enumerate(queries):
                 verb = _match_verb(q)
                 if verb is not None:
+                    # statement verbs and sys.* introspection leave no
+                    # history record: "-" keeps the id list positional
                     outs[i], qids[i] = verb(self), "-"
                     continue
+                if _SYS_HINT_RE.search(q):
+                    from tpu_olap_torch.planner.sqlparse import parse_sql
+                    try:
+                        stmt = parse_sql(q)
+                    except Exception:
+                        stmt = None  # the plan span raises it properly
+                    if stmt is not None \
+                            and stmt_uses_sys(stmt, self.catalog):
+                        outs[i] = self._execute_sys_stmt(stmt)
+                        qids[i] = "-"
+                        continue
                 with root.span("plan", query_id=qids[i]):
                     plan = self.planner.plan(q)
                 if plan.rewritten and self.cubes.active:
@@ -897,6 +997,12 @@ _COMPACT_RE = re.compile(
     r"^\s*compact\s+druid\s+table\s+(\w+)\s*;?\s*$", re.I)
 _CHECKPOINT_RE = re.compile(
     r"^\s*checkpoint\s+druid\s+table\s+(\w+)\s*;?\s*$", re.I)
+
+
+# cheap pre-parse hint that a statement MIGHT reference a sys.* virtual
+# datasource (catalog.systables): a match still confirms against the
+# parsed tree before taking the introspection path
+_SYS_HINT_RE = re.compile(r"\bsys\.[A-Za-z_]\w*", re.I)
 
 
 def _match_verb(query: str):

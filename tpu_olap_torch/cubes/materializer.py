@@ -28,10 +28,12 @@ recorded on the entry (status "error") and is never retried at the same
 generation; nothing builds it on the host instead. `register_table` /
 `drop_table` cascade through `on_table_registered` / `on_table_dropped`.
 
-The cube metrics and events of the JAX package, `sys.cubes` and
-`/debug/cubes` come with the rest of ROADMAP queue A item 14: until
-then the registry counts its rewrite outcomes and builds in `rewrites`
-and `builds`.
+Observability, as in the JAX package: `cube_rewrite_total{result}`,
+`cube_builds_total{result}` and the `cubes_registered` gauge in the
+engine's metrics registry, the `cube_build`, `cube_error` and
+`cube_drop` events, and `snapshot()` behind sys.cubes and GET
+/debug/cubes. The registry also keeps its rewrite outcomes and builds
+in the dicts `rewrites` and `builds`.
 """
 
 from __future__ import annotations
@@ -170,6 +172,17 @@ class CubeRegistry:
         # no_cube / error) and builds by outcome (ok / refresh / error)
         self.rewrites: dict[str, int] = {}
         self.builds: dict[str, int] = {}
+        m = engine.metrics
+        self._m_req = m.counter(
+            "cube_rewrite_total",
+            "Aggregate-rewrite attempts against materialized cubes by "
+            "outcome (served / refused / stale / no_cube / error).",
+            ("result",))
+        self._m_builds = m.counter(
+            "cube_builds_total",
+            "Cube materializations by outcome.", ("result",))
+        self._m_cubes = m.gauge(
+            "cubes_registered", "Materialized rollup cubes registered.")
 
     def _bump(self, counts: dict, result: str):
         with self._lock:
@@ -194,6 +207,7 @@ class CubeRegistry:
 
     def count_request(self, result: str):
         self._bump(self.rewrites, result)
+        self._m_req.inc(result=result)
 
     def note_serve(self, entry: CubeEntry):
         with self._lock:
@@ -236,6 +250,7 @@ class CubeRegistry:
                 raise UserError(f"cube {spec.name!r} already exists")
             entry = CubeEntry(spec)
             self._cubes[spec.name] = entry
+            self._m_cubes.set(len(self._cubes))
         try:
             self._build(entry)
         except Exception:
@@ -250,9 +265,11 @@ class CubeRegistry:
     def drop(self, name: str) -> bool:
         with self._lock:
             entry = self._cubes.pop(name, None)
+            self._m_cubes.set(len(self._cubes))
         if entry is None:
             return False
         self._drop_storage(entry.spec.table_name)
+        self.engine.runner.events.emit("cube_drop", cube=name)
         return True
 
     def _drop_storage(self, table_name: str):
@@ -451,7 +468,16 @@ class CubeRegistry:
                 self._drop_storage(spec.table_name)
                 return
             self._bump(self.builds, "refresh" if refresh else "ok")
+            self._m_builds.inc(result="refresh" if refresh else "ok")
             entry.build_metrics = metrics
+            eng.runner.events.emit(
+                "cube_build", cube=spec.name, base=spec.datasource,
+                refresh=refresh, rows=data.n_rows,
+                base_generation=table.generation,
+                rows_scanned=entry.build_rows_scanned,
+                build_ms=round(entry.build_ms, 3),
+                storage_bytes=storage,
+                sketch_bytes=data.sketch_bytes)
         except Exception as e:
             with self._lock:
                 entry.status = "error"
@@ -459,6 +485,10 @@ class CubeRegistry:
                 entry.build_ms = (time.perf_counter() - t0) * 1000
                 entry.last_refresh_ms = int(time.time() * 1000)
             self._bump(self.builds, "error")
+            self._m_builds.inc(result="error")
+            eng.runner.events.emit(
+                "cube_error", cube=spec.name, base=spec.datasource,
+                refresh=refresh, error=str(e)[:300])
             raise
 
 

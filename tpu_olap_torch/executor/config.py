@@ -238,9 +238,8 @@ class EngineConfig:
     # statements sit between the two stages at once (graph admission);
     # 0 = serialized (dispatch_lock held across the whole statement).
     pipeline_depth: int = 4
-    # degrade_shards_on_retry and the JAX package's profile_dir,
-    # telemetry_* and sentinel_* fields come with ROADMAP queue A items
-    # 13 and 14; until then passing one raises TypeError.
+    # degrade_shards_on_retry comes with the multi-GPU port (ROADMAP
+    # queue A item 13); until then passing it raises TypeError.
 
     # observability (obs.trace, obs.metrics, obs.events, obs.slo), with
     # the JAX package's defaults: per-statement span trees (a ring of
@@ -263,6 +262,40 @@ class EngineConfig:
     slo_latency_ms: float = 500.0
     slo_target: float = 0.99
     slo_window_s: float = 3600.0
+    # per-statement device profile: when set, each statement's stage graph
+    # runs under a torch.profiler session (CPU and, on a CUDA engine,
+    # CUDA activity) written as a Chrome trace into a directory of its own
+    # beneath this one (obs.profile.profile_query); the record's
+    # "profile_trace" names it. Opt-in: a session costs milliseconds.
+    profile_dir: str | None = None
+
+    # telemetry plane (obs.timeseries + obs.sentinel), with the JAX
+    # package's defaults: a periodic `telemetry` background graph on the
+    # stage scheduler snapshots every metric series into bounded
+    # per-series rings (sys.metrics_history, GET /debug/timeseries) and
+    # runs the regression sentinel's resource checks. interval <= 0
+    # disables the graph; retention bounds each series' ring.
+    telemetry_enabled: bool = True
+    telemetry_interval_s: float = 5.0
+    telemetry_retention: int = 360
+    # regression sentinel (obs.sentinel): EWMA and moment baselines per
+    # query template and per stage; a served statement slower than
+    # max(floor, factor * baseline) after `min_samples` warm-up raises a
+    # latency_drift alert attributed to the stage whose busy + wait moved
+    # most. Resource alerts (hbm_pressure, eviction_thrash, wal_lag,
+    # breaker_open, admission_shed) fire on the telemetry tick; an alert
+    # not re-confirmed for clear_after_s clears. Alerts surface as
+    # events, alerts_active{kind}, sys.alerts and GET /debug/health.
+    sentinel_enabled: bool = True
+    sentinel_min_samples: int = 8
+    sentinel_ewma_alpha: float = 0.2
+    sentinel_latency_factor: float = 3.0
+    sentinel_latency_floor_ms: float = 10.0
+    sentinel_clear_after_s: float = 60.0
+    sentinel_hbm_pressure: float = 0.90   # of hbm_budget_bytes
+    sentinel_eviction_thrash: int = 32    # evictions per tick
+    sentinel_wal_lag_records: int = 1024  # unsynced WAL frames
+    sentinel_alert_limit: int = 256       # sys.alerts history ring
 
     # workload profiler (obs.workload): every completed statement folds
     # into bounded per-template rolling stats, the demand signal of the

@@ -85,9 +85,17 @@ class HbmLedger:
     memory_reserved(). `pin_inflight` counts a dispatch's not-yet-copied
     output bytes toward the budget without making them evictable.
 
-    Per-chip attribution (`set_num_chips`, the per-(chip, owner)
-    `breakdown`, `register_external` for tier-1 cache pins) comes with
-    the multi-GPU port (ROADMAP queue A item 13)."""
+    Attribution by owner class, as in the JAX package: `breakdown()`
+    gives {(chip, owner): bytes} over `table_columns` (column, null,
+    validity and derived stacks), `cube_tables` (the stacks of a cube's
+    storage table, `__cube_<name>`) and `inflight` (pinned outputs),
+    which sum exactly to `bytes_in_use`, plus what external reporters
+    say (`register_external`: the tier-1 cache's `cache_pins`).
+    Everything sits on chip 0, the one CUDA device: `num_chips` is 1,
+    and the split over D devices (`set_num_chips`) comes with the
+    multi-GPU port (ROADMAP queue A item 13)."""
+
+    num_chips = 1
 
     def __init__(self, budget_bytes: int | None):
         self.budget = budget_bytes
@@ -98,16 +106,80 @@ class HbmLedger:
         self.bytes_in_use = 0
         self.evictions = 0
         self.high_watermark = 0
+        self._by_owner: dict[str, int] = {}
+        self._external: dict = {}  # owner -> fn(num_chips) -> {chip: b}
+
+    @staticmethod
+    def _owner_for(key) -> str:
+        """Owner class of a ledger key: in-flight output pins, a cube's
+        storage table (catalog name `__cube_<name>`), or ordinary table
+        stacks."""
+        head = str(key[0]) if key else ""
+        if head == "__inflight__":
+            return "inflight"
+        if head.startswith("__cube"):
+            return "cube_tables"
+        return "table_columns"
+
+    def _account(self, key, nbytes: int, sign: int):
+        """bytes_in_use, the owner classes and the high-watermark; the
+        caller holds _mu."""
+        self.bytes_in_use += sign * nbytes
+        owner = self._owner_for(key)
+        nb = self._by_owner.get(owner, 0) + sign * nbytes
+        if nb:
+            self._by_owner[owner] = nb
+        else:
+            self._by_owner.pop(owner, None)
+        if self.bytes_in_use > self.high_watermark:
+            self.high_watermark = self.bytes_in_use
+
+    def register_external(self, owner: str, fn):
+        """Register a live byte reporter folded into breakdown() under
+        `owner` (tier-1 cache pins: the ResultCache owns those buffers
+        and their eviction, so the ledger reports rather than manages
+        them). fn(num_chips) -> {chip: bytes}."""
+        with self._mu:
+            self._external[owner] = fn
+
+    def breakdown(self) -> dict:
+        """{(chip, owner-class): bytes}: the ledger-managed classes
+        (table_columns, cube_tables, inflight), which sum exactly to
+        bytes_in_use, plus the external reporters (cache_pins)."""
+        with self._mu:
+            out = {(0, o): b for o, b in self._by_owner.items()}
+            external = dict(self._external)
+        for owner, fn in external.items():
+            try:
+                per_chip = fn(self.num_chips) or {}
+            except Exception:  # noqa: BLE001 — accounting, not serving
+                continue
+            for c, nbytes in per_chip.items():
+                if nbytes:
+                    k = (int(c), owner)
+                    out[k] = out.get(k, 0) + int(nbytes)
+        return out
+
+    def total_bytes(self) -> int:
+        """bytes_in_use plus the external (cache-pin) bytes: what
+        breakdown() sums to."""
+        snap = self.breakdown()
+        with self._mu:
+            core = self.bytes_in_use
+            external = set(self._external)
+        return core + sum(b for (_c, o), b in snap.items()
+                          if o in external)
+
+    def watermarks(self) -> dict:
+        """Ledger-managed high-watermarks, total and per chip."""
+        with self._mu:
+            return {"total": self.high_watermark,
+                    "per_chip": [self.high_watermark]}
 
     @property
     def inflight_bytes(self) -> int:
         with self._mu:
             return sum(self._inflight.values())
-
-    def _grow(self, nbytes: int):
-        self.bytes_in_use += nbytes
-        if self.bytes_in_use > self.high_watermark:
-            self.high_watermark = self.bytes_in_use
 
     def touch(self, key):
         with self._mu:
@@ -123,11 +195,11 @@ class HbmLedger:
                     if k in pinned:
                         continue
                     n, fn = self._entries.pop(k)
-                    self.bytes_in_use -= n
+                    self._account(k, n, -1)
                     self.evictions += 1
                     fn()
             self._entries[key] = (nbytes, evict_fn)
-            self._grow(nbytes)
+            self._account(key, nbytes, +1)
 
     def pin_inflight(self, key, nbytes: int):
         """Account a dispatch's not-yet-copied output buffers: counted in
@@ -135,19 +207,19 @@ class HbmLedger:
         but never evictable."""
         with self._mu:
             self._inflight[key] = int(nbytes)
-            self._grow(int(nbytes))
+            self._account(key, int(nbytes), +1)
 
     def unpin_inflight(self, key):
         with self._mu:
             n = self._inflight.pop(key, None)
             if n is not None:
-                self.bytes_in_use -= n
+                self._account(key, n, -1)
 
     def remove(self, key):
         with self._mu:
             e = self._entries.pop(key, None)
             if e is not None:
-                self.bytes_in_use -= e[0]
+                self._account(key, e[0], -1)
 
     def remove_table(self, table_name: str):
         with self._mu:

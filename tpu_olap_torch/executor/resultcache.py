@@ -45,11 +45,12 @@ a stale-generation entry can never be SERVED even before it is purged.
 `invalidate_table` (called at registration) and `clear` (CLEAR DRUID
 CACHE) purge eagerly so the byte gauges drop immediately.
 
-Observability: hit/miss/bypass/evict counts per tier in `stats` and
-`snapshot()`. The runner does not pass its metrics registry and event
-log (`metrics`, `events`) yet: the caches' metrics and events, the
-`/debug/cache` endpoint and `sys.caches` come with the rest of ROADMAP
-queue A item 14.
+Observability, as in the JAX package: hit/miss/bypass counters per tier
+(`result_cache_requests_total{tier,result}`), eviction counters, byte and
+entry gauges, `cache_invalidate` events, `snapshot()` (GET /debug/cache,
+sys.caches) and the tier-1 census behind sys.devices and the HBM
+ledger's `cache_pins` class (`shard_entries`, `shard_bytes`, on one
+device: every entry is chip 0's).
 """
 
 from __future__ import annotations
@@ -417,6 +418,37 @@ class ResultCache:
 
     # -------------------------------------------------------------- admin
 
+    def cached_segments(self) -> set:
+        """{(table, segment_id)} pairs with at least one live tier-1
+        partial entry — the `cache_pinned` column of sys.segments
+        (catalog.systables). Key layout: (tkey, token, sid) with tkey
+        leading with the table name."""
+        with self._lock:
+            return {(k[0][0], k[2]) for k in self._seg}
+
+    def shard_entries(self, num_shards: int) -> dict:
+        """{chip index: live tier-1 entries}, the chip of segment sid
+        being sid mod num_shards (1 here: the one device) — the census
+        behind sys.devices and GET /debug/devices."""
+        d = max(1, int(num_shards))
+        out: dict = {}
+        with self._lock:
+            for k in self._seg:
+                c = int(k[2]) % d
+                out[c] = out.get(c, 0) + 1
+        return out
+
+    def shard_bytes(self, num_shards: int) -> dict:
+        """{chip index: live tier-1 entry bytes}, as shard_entries — the
+        `cache_pins` class the HbmLedger folds into its breakdown."""
+        d = max(1, int(num_shards))
+        out: dict = {}
+        with self._lock:
+            for k, e in self._seg.items():
+                c = int(k[2]) % d
+                out[c] = out.get(c, 0) + int(e.nbytes)
+        return out
+
     def count_bypass(self, tier: str = "segment"):
         self._count(tier, "bypass")
 
@@ -496,8 +528,8 @@ class ResultCache:
         return purged
 
     def snapshot(self) -> dict:
-        """Both tiers' entries, bytes, budgets and counts (the payload of
-        GET /debug/cache once the server is ported, item 14)."""
+        """GET /debug/cache payload: both tiers' entries, bytes, budgets
+        and counts."""
         with self._lock:
             return {
                 "enabled": {"full": self.full_enabled,

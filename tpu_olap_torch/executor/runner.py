@@ -69,17 +69,32 @@ maintainer).
 Observability, as in the JAX package (tpu_olap_torch.obs): `record` is
 the one gate every statement's metrics pass through — the history ring,
 the incremental counters, the metrics registry, the SLO tracker, the
-event log and the workload profiler. Spans open on the active trace.
-The mesh (per-GPU placement, the per-chip transfer fan-out, the broker
-merge) comes with ROADMAP queue A item 13; compile metrics, the cache
-and memory gauges and the telemetry sampler with the rest of item 14.
+event log, the workload profiler and the regression sentinel. Spans open
+on the active trace. NVRTC builds count in `recompiles_total{kind}` (by
+kernel template) and `compile_ms_total` (kernels.cuda_build reports
+them to `_note_compile`); `refresh_resource_gauges` fills the memory
+and cache gauges at scrape time (`device_bytes{table}`,
+`cache_entries{cache}` for the plan cache and, as "jit", the in-process
+cache of compiled kernels, the ledger's `hbm_chip_*` gauges), without
+dispatch_lock and without a device sync. The telemetry graph (a periodic
+graph of the stage scheduler) samples the registry into the sampler's
+rings and runs the sentinel's resource checks (`hbm`, `breaker`,
+`admission`, and the engine's `wal`). While a torch.profiler capture is
+live (obs.profile), each dispatch runs under `annotate_dispatch` with
+its query id; `profile_dir` profiles every statement into a trace of
+its own. `device_snapshot` (sys.devices) has one row, for the runner's
+torch device. Left for the multi-GPU port (ROADMAP queue A item 13): the
+mesh (per-GPU placement, the per-chip transfer fan-out, the broker
+merge), per-chip dispatch counts and the ledger's split over D devices.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
+import weakref
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
@@ -101,7 +116,7 @@ from tpu_olap_torch.ir.aggregations import CountAggregation
 from tpu_olap_torch.ir.dimensions import DefaultDimensionSpec
 from tpu_olap_torch.ir.interval import ETERNITY
 from tpu_olap_torch.kernels.filtereval import _take
-from tpu_olap_torch.kernels import fused_reduce
+from tpu_olap_torch.kernels import cuda_build, fused_reduce
 from tpu_olap_torch.kernels.groupby import (UnsupportedAggregation,
                                             group_reduce, merge_partials)
 from tpu_olap_torch.kernels.sparse_groupby import SENTINEL
@@ -112,7 +127,11 @@ from tpu_olap_torch.ir.query import (GroupByQuerySpec, ScanQuerySpec,
                                      TimeseriesQuerySpec, TopNQuerySpec)
 from tpu_olap_torch.obs.events import EventLog
 from tpu_olap_torch.obs.metrics import QUEUE_WAIT_BUCKETS_MS, MetricsRegistry
+from tpu_olap_torch.obs import profile as profile_mod
+from tpu_olap_torch.obs.profile import annotate_dispatch
+from tpu_olap_torch.obs.sentinel import RegressionSentinel
 from tpu_olap_torch.obs.slo import SloTracker
+from tpu_olap_torch.obs.timeseries import TimeseriesSampler
 from tpu_olap_torch.obs.trace import (Tracer, current_query_id,
                                       current_traceparent,
                                       in_nested_execution, short_str,
@@ -204,6 +223,18 @@ def sanitize_metric_value(v, _depth=0):
     return short_str(v)
 
 
+_GONE = object()
+
+
+def _call_alive(ref, method: str, *args):
+    """`ref()`'s method called with args, or _GONE once the referent has
+    been collected."""
+    obj = ref()
+    if obj is None:
+        return _GONE
+    return getattr(obj, method)(*args)
+
+
 def resolve_device(name: str) -> torch.device:
     """The device the engine runs on; "cuda" without a card raises —
     the engine never carries on on the CPU in its place."""
@@ -252,9 +283,11 @@ class QueryRunner:
         self._transfer_count = 0        # live stage-2 transfers (gauge)
         self._coalescer = None
         self._batch_seq = 0
+        self._profile_seq = 0  # profile_dir trace directories
+        self._dispatches = 0   # guarded dispatches (sys.devices)
         self._wedged = False   # a deadline expired: re-probe before trusting
-        # one ledger over every table's resident stacks; per-chip
-        # attribution comes with the multi-GPU port (item 13)
+        # one ledger over every table's resident stacks, by owner class,
+        # all on the one device (the split over D GPUs is item 13)
         self._ledger = HbmLedger(self.config.hbm_budget_bytes)
         # observability (tpu_olap_torch.obs), all fed through record()
         self.history = HistoryRing(self.config.history_limit)
@@ -311,7 +344,37 @@ class QueryRunner:
             "inflight_transfers",
             "Device->host result transfers currently in flight "
             "(stage-2 completions).")
-        self.result_cache = ResultCache(self.config)
+        # memory and compile accounting, with the JAX package's names:
+        # the gauges are point-in-time (refresh_resource_gauges, at
+        # scrape), the counters update where their event happens
+        self._m_compile = m.counter(
+            "compile_cache_requests_total",
+            "Device statements by kernel-cache outcome (miss: an NVRTC "
+            "build ran).", ("result",))
+        self._m_device_bytes = m.gauge(
+            "device_bytes",
+            "Live device bytes resident per table (column, null, "
+            "validity and derived stacks).", ("table",))
+        self._m_cache_entries = m.gauge(
+            "cache_entries", "Entries in the runner caches (plan; jit: "
+            "the in-process cache of NVRTC-compiled kernels).",
+            ("cache",))
+        self._m_cache_evict = m.counter(
+            "cache_evictions_total",
+            "Capacity evictions from the runner caches.", ("cache",))
+        self._m_cache_clears = m.counter(
+            "cache_clears_total",
+            "Explicit cache clears (CLEAR DRUID CACHE / recovery "
+            "purges).", ("scope",))
+        self._m_recompile = m.counter(
+            "recompiles_total",
+            "Kernels built by NVRTC (misses of the in-process and the "
+            "on-disk cubin caches), by kernel template.", ("kind",))
+        self._m_compile_ms = m.counter(
+            "compile_ms_total",
+            "Milliseconds of NVRTC compilation of the kernels built.")
+        self.result_cache = ResultCache(self.config, metrics=m,
+                                        events=self.events)
         self.workload = WorkloadProfiler(
             max_templates=self.config.workload_max_templates,
             latency_window=self.config.workload_latency_window,
@@ -332,12 +395,56 @@ class QueryRunner:
         # the stage scheduler: the query path's stage sections and the
         # background periodic graphs (compactor, WAL flush, cube
         # maintainer)
-        self.stages = StageScheduler(self.config, metrics=m,
-                                     admission=self.admission,
-                                     inject=self._inject,
-                                     events=self.events)
+        # its hooks hold the runner weakly, so that an engine dropped
+        # without close() does not live on in the scheduler's ticker
+        ref = weakref.ref(self)
+        self.stages = StageScheduler(
+            self.config, metrics=m, admission=self.admission,
+            inject=lambda stage: _call_alive(ref, "_inject", stage),
+            events=self.events)
         if (self.config.batch_window_ms or 0) > 0:
             self.set_batch_window(self.config.batch_window_ms)
+        # the telemetry plane: the sampler snapshots every metric series
+        # into bounded rings (sys.metrics_history, GET
+        # /debug/timeseries); the sentinel keeps per-template and
+        # per-stage drift baselines fed by record() and runs resource
+        # checks on the same periodic tick. Observers only: neither runs
+        # SQL nor leaves a query record.
+        self.telemetry = TimeseriesSampler(
+            m, retention=self.config.telemetry_retention)
+        self.sentinel = RegressionSentinel(self.config, metrics=m,
+                                           events=self.events)
+        ledger = self._ledger
+        cache = self.result_cache
+        ledger.register_external("cache_pins", cache.shard_bytes)
+        self.sentinel.add_probe("hbm", lambda: {
+            "bytes_in_use": ledger.bytes_in_use,
+            "budget": ledger.budget, "evictions": ledger.evictions})
+        breaker = self.breaker
+        self.sentinel.add_probe("breaker", lambda: {"state": breaker.state})
+        shed_counter = m.counter("queries_shed_total",
+                                 "Queries shed by admission control.",
+                                 ("reason",))
+        self.sentinel.add_probe("admission", lambda: {
+            "shed_total": sum(s.value for s in
+                              list(shed_counter.series.values()))})
+        self._telemetry_handle = None
+        config = self.config
+        if config.telemetry_enabled and \
+                (config.telemetry_interval_s or 0) > 0:
+            def tick():
+                if _call_alive(ref, "_telemetry_tick") is _GONE:
+                    handle.cancel()   # the engine was dropped unclosed
+
+            handle = self._telemetry_handle = self.stages.register_periodic(
+                "telemetry", lambda: config.telemetry_interval_s, tick)
+
+    def _telemetry_tick(self):
+        """One telemetry-graph beat: sample the registry into the history
+        rings, then run the sentinel's resource checks and stale-alert
+        clearing."""
+        self.telemetry.sample_once()
+        self.sentinel.check()
 
     def _inject(self, stage: str):
         """Fire the configured fault injector at `stage` with the current
@@ -357,6 +464,22 @@ class QueryRunner:
     @last_metrics.setter
     def last_metrics(self, metrics: dict):
         self._tls.metrics = metrics
+
+    def _note_compile(self, kind: str, ms: float):
+        """kernels.cuda_build's observer: one NVRTC build of a `kind`
+        template, `ms` of compilation. Counted in recompiles_total and
+        compile_ms_total, and kept for the statement running on this
+        thread (`_execute` stamps its record's "recompiles" and
+        "compile_ms")."""
+        self._m_recompile.inc(kind=kind)
+        self._m_compile_ms.inc(ms)
+        pending = getattr(self._tls, "compiles", None)
+        if pending is not None:
+            pending[0] += 1
+            pending[1] += ms
+
+    def _observe_compiles(self):
+        return cuda_build.observe_compiles(self._note_compile)
 
     # --------------------------------------------- pipelined execution
 
@@ -546,7 +669,8 @@ class QueryRunner:
         # one admission slot per batch submission: the shared pass is one
         # device occupancy however many statements ride it. Pipelined
         # mode: no outer lock, run_batch's device sections take it.
-        with self.admission.slot(self.config.query_deadline_s):
+        with self.admission.slot(self.config.query_deadline_s), \
+                self._observe_compiles():
             if self._pipelined:
                 return run_batch(self, queries, table, query_ids)
             with self._timed_dispatch_lock():
@@ -562,7 +686,8 @@ class QueryRunner:
         # an open breaker
         res = self._serve_full_cache(query, table)
         if res is None:
-            res = self._execute_uncached(query, table)
+            with self._observe_compiles():
+                res = self._execute_uncached(query, table)
         self.last_metrics = res.metrics
         return res
 
@@ -661,7 +786,13 @@ class QueryRunner:
             try:
                 self._attempt_local.value = attempt
                 maybe_inject(self.config, "dispatch", attempt)
-                out = call()
+                # while a torch.profiler capture is live (obs.profile),
+                # the launches run under this statement's query id;
+                # otherwise a module-flag probe
+                with annotate_dispatch(current_query_id()):
+                    out = call()
+                with self._totals_lock:
+                    self._dispatches += 1
                 # a success resets the breaker's consecutive failures
                 self.breaker.record_success()
                 return out
@@ -886,6 +1017,11 @@ class QueryRunner:
             self._m_hbm_bytes.set(m["hbm_bytes"])
         if "hbm_evictions" in m:
             self._m_hbm_evict.set_total(m["hbm_evictions"])
+        if self.device.type == "cuda" and "lower_ms" in m:
+            # a statement that lowered on the card: its kernels came from
+            # the caches (hit) or an NVRTC build ran (miss)
+            self._m_compile.inc(
+                result="miss" if m.get("recompiles") else "hit")
         if in_nested_execution():
             # an internal leg of a larger statement (a grouping-sets
             # union, a planner subquery, a fallback derived table): its
@@ -923,8 +1059,130 @@ class QueryRunner:
                 **({"cache_tier": m["cache_tier"]}
                    if m.get("cache_tier") else {}),
                 **({"failed": True} if failed else {}))
+        # the regression sentinel sees served responses only:
+        # introspection and nested legs returned above, and it skips
+        # failed and deadline records itself
+        self.sentinel.observe(m)
         self.history.append(m)
         return m
+
+    def device_bytes_by_table(self) -> dict:
+        """Live device bytes per table: each dataset's resident column,
+        null, validity and derived stacks. Reads the datasets as they
+        stand (no dispatch_lock, no device sync)."""
+        return {name: ds.resident_bytes()
+                for name, ds in list(self._datasets.items())}
+
+    def cache_populations(self) -> dict:
+        """{cache: entries} of the runner's caches: the plan cache and,
+        as "jit", the process's cache of NVRTC-compiled kernels
+        (kernels.cuda_build; shared by every engine of the process)."""
+        return {"jit": len(cuda_build._kernels),
+                "plan": len(self._plan_cache)}
+
+    def refresh_resource_gauges(self):
+        """Point-in-time memory and cache gauges, refreshed at scrape
+        time (GET /metrics, sys.metrics) rather than per statement:
+        walking every resident buffer is O(buffers). Takes no
+        dispatch_lock and never synchronizes with the device."""
+        by_table = self.device_bytes_by_table()
+        for t, b in by_table.items():
+            self._m_device_bytes.set(b, table=t)
+        for key in list(self._m_device_bytes.series):
+            if key[0] not in by_table:  # evicted table: zero, not stale
+                self._m_device_bytes.set(0.0, table=key[0])
+        for cache, n in self.cache_populations().items():
+            self._m_cache_entries.set(n, cache=cache)
+        self.result_cache._refresh_gauges()
+        self._refresh_hbm_chip_gauges()
+
+    def _refresh_hbm_chip_gauges(self):
+        """Per-(chip, owner-class) device-memory gauges: the ledger's
+        exact attribution plus high-watermark and headroom against the
+        budget — the /metrics face of sys.devices' hbm columns (one
+        chip, 0, the runner's device)."""
+        m = self.metrics
+        g_bytes = m.gauge(
+            "hbm_chip_bytes",
+            "HBM-resident bytes per chip and owner class (exact "
+            "HbmLedger attribution; cache_pins via the ResultCache "
+            "reporter).", ("chip", "owner"))
+        g_hwm = m.gauge(
+            "hbm_chip_high_watermark_bytes",
+            "Ledger-managed per-chip HBM high-watermark.", ("chip",))
+        g_head = m.gauge(
+            "hbm_chip_headroom_bytes",
+            "Per-chip share of hbm_budget_bytes minus ledger-managed "
+            "resident bytes (absent without a budget).", ("chip",))
+        ledger = self._ledger
+        snap = ledger.breakdown()
+        hwm = ledger.watermarks()
+        in_ledger = 0
+        seen = set()
+        for (c, owner), b in snap.items():
+            if owner != "cache_pins":
+                in_ledger += b
+            g_bytes.set(b, chip=c, owner=owner)
+            seen.add((str(c), owner))
+        for key in list(g_bytes.series):
+            if tuple(key) not in seen:  # released class: zero, not stale
+                g_bytes.set(0.0, chip=key[0], owner=key[1])
+        g_hwm.set(hwm["per_chip"][0], chip=0)
+        if ledger.budget:
+            g_head.set(ledger.budget - in_ledger, chip=0)
+        m.gauge("hbm_high_watermark_bytes",
+                "Ledger-managed total HBM high-watermark.") \
+            .set(hwm["total"])
+
+    def device_snapshot(self) -> list:
+        """Serving state of the runner's device, behind sys.devices and
+        GET /debug/devices: one row (the multi-GPU placement is ROADMAP
+        queue A item 13) with its segments, resident bytes, guarded
+        dispatches, tier-1 cache entries, rebase counts, and the
+        ledger's exact per-owner-class bytes (table columns, cube
+        tables, in-flight pins; they sum to bytes_in_use) beside the
+        tier-1 cache's byte census, the high-watermark and the headroom
+        against hbm_budget_bytes."""
+        dev = self.device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        segments = resident = rebased_cols = rebase_rows = 0
+        for _name, ds in list(self._datasets.items()):
+            segments += len(ds.table.segments)
+            resident += ds.resident_bytes()
+            rebased_cols += ds.rebased_cols
+            rebase_rows += ds.rebase_rows_uploaded
+        ledger = self._ledger
+        hbm = ledger.breakdown()
+        col_b = hbm.get((0, "table_columns"), 0)
+        cube_b = hbm.get((0, "cube_tables"), 0)
+        infl_b = hbm.get((0, "inflight"), 0)
+        in_ledger = col_b + cube_b + infl_b
+        with self._totals_lock:
+            dispatches = self._dispatches
+        return [{
+            "index": 0,
+            "device": str(dev),
+            "platform": dev.type,
+            "process": 0,
+            "chips": 1,
+            "segments": segments,
+            "resident_bytes": int(resident),
+            "dispatches": dispatches,
+            "cache_shard_entries": self.result_cache.shard_entries(1)
+            .get(0, 0),
+            "rebased_cols": rebased_cols,
+            "rebase_rows_uploaded": rebase_rows,
+            "hbm_bytes": int(in_ledger),
+            "table_column_bytes": int(col_b),
+            "cube_table_bytes": int(cube_b),
+            "inflight_bytes": int(infl_b),
+            "cache_pin_bytes": int(hbm.get((0, "cache_pins"), 0)),
+            "hbm_high_watermark_bytes": int(
+                ledger.watermarks()["per_chip"][0]),
+            "hbm_headroom_bytes": (int(ledger.budget - in_ledger)
+                                   if ledger.budget else None),
+        }]
 
     def counters(self) -> dict:
         """Aggregate counters, kept incrementally at record time: exact
@@ -943,9 +1201,13 @@ class QueryRunner:
         then discarded (the deadline's own record stands)."""
         t0 = time.perf_counter()
         self.last_metrics = {"host_copies": 0}
+        pending = self._tls.compiles = [0, 0.0]
         try:
             with self.stages.graph(self.config.query_deadline_s):
-                res = self._execute_graph(query, table)
+                if self.config.profile_dir is None:
+                    res = self._execute_graph(query, table)
+                else:
+                    res = self._execute_profiled(query, table)
         except Exception:
             m = self.last_metrics
             m["failed"] = True
@@ -960,12 +1222,35 @@ class QueryRunner:
         m["total_ms"] = (time.perf_counter() - t0) * 1000
         m["query_type"] = query.query_type
         m["datasource"] = table.name
+        if pending[0]:
+            m["recompiles"] = pending[0]
+            m["compile_ms"] = round(pending[1], 3)
         fp = self.fingerprint(query, table.name)
         m["_wl"] = fp
         if abandoned is None or not abandoned.is_set():
             self.record(m)
             self._store_full_cache(query, table, res, fp)
         self.last_metrics = m
+        return res
+
+    def _execute_profiled(self, query, table) -> QueryResult:
+        """The statement under its own torch.profiler session
+        (EngineConfig.profile_dir): a Chrome trace in a directory of its
+        own beneath profile_dir, named in the record's "profile_trace".
+        One session runs in the process at a time: a statement that meets
+        another (a capture, another profiled statement) raises
+        RuntimeError, as the JAX package's jax.profiler.trace does."""
+        # monotonic, not len(history): the ring plateaus at history_limit
+        # and the directory names would collide
+        with self._totals_lock:
+            self._profile_seq += 1
+            seq = self._profile_seq
+        trace_dir = os.path.join(self.config.profile_dir,
+                                 f"q{seq:05d}_{query.query_type}")
+        with profile_mod.profile_query(trace_dir,
+                                       cuda=self.device.type == "cuda"):
+            res = self._execute_graph(query, table)
+        res.metrics["profile_trace"] = trace_dir
         return res
 
     def _execute_graph(self, query, table) -> QueryResult:
@@ -1043,9 +1328,24 @@ class QueryRunner:
     def clear_cache(self, table_name: str | None = None):
         """Drop one table's resident columns, memoized plans, cap hints
         and both result-cache tiers, or every table's (None): the next
-        query re-uploads. Snapshots first: an abandoned deadline thread
-        may touch these dicts concurrently."""
-        self.result_cache.clear(table_name)
+        query re-uploads. Counted in cache_clears_total{scope} with a
+        `cache_clear` event, as in the JAX package (the compiled kernels
+        are the process's and stay)."""
+        self._m_cache_clears.inc(scope="table" if table_name else "full")
+        purged = self.result_cache.clear(table_name)
+        self.events.emit(
+            "cache_clear", table=table_name or "*",
+            jit_entries=len(cuda_build._kernels),
+            plan_entries=len(self._plan_cache),
+            result_entries=purged["full"],
+            segment_entries=purged["segment"])
+        self.purge_device_state(table_name)
+
+    def purge_device_state(self, table_name: str | None = None):
+        """clear_cache without the result cache, the counter and the
+        event: one table's (or every table's) resident stacks, memoized
+        plans and cap hints. Snapshots first: an abandoned deadline
+        thread may touch these dicts concurrently."""
         if table_name is None:
             for ds in list(self._datasets.values()):
                 ds.evict()
@@ -1126,10 +1426,12 @@ class QueryRunner:
                 hit = self._plan_cache.get(key)
             if hit is not None and hit[0] is table:
                 return hit[1]
-            plan = lower(query, table, self.config)
+            with self._observe_compiles():
+                plan = lower(query, table, self.config)
             with self._cache_lock:
                 if len(self._plan_cache) > 512:
                     self._plan_cache.pop(next(iter(self._plan_cache)))
+                    self._m_cache_evict.inc(cache="plan")
                 self._plan_cache[key] = (table, plan)
             return plan
 
@@ -1529,7 +1831,7 @@ class QueryRunner:
                                 consts)
 
         t0 = time.perf_counter()
-        with self._pipeline_slot():
+        with self._pipeline_slot(), self._observe_compiles():
             host = self._staged_fetch(launch, metrics)
         lo, W = win
         # only the computed segments are read
@@ -1559,7 +1861,8 @@ class QueryRunner:
         long-running background work."""
         lock = nullcontext() if self._pipelined else \
             self._timed_dispatch_lock()
-        with self.admission.slot(self.config.query_deadline_s), lock:
+        with self.admission.slot(self.config.query_deadline_s), lock, \
+                self._observe_compiles():
             self.breaker.check()
             metrics = self.last_metrics = {"host_copies": 0}
             with _span("lower"):

@@ -502,6 +502,13 @@ class StageScheduler:
             with self._tick_cond:
                 if self._stopped:
                     return
+                if not any(not h.cancelled for h in self._handles):
+                    # every graph cancelled (an engine dropped without
+                    # close() cancels its telemetry graph): the ticker
+                    # ends, and register_periodic starts a new one
+                    self._handles = []
+                    self._ticker = None
+                    return
                 now = time.monotonic()
                 due = [h for h in self._handles
                        if not h.cancelled and not h.running

@@ -11,10 +11,17 @@ the CUDA driver API (`cuModuleLoadData`, `cuModuleGetFunction`,
 `cuLaunchKernel` on torch's current stream); a module is unloaded when
 no cache or plan holds its kernel any more. Every NVRTC and driver call
 checks its result and raises on failure. Nothing here needs nvcc.
+
+Every NVRTC build (a miss of both caches; a cubin read from disk is not
+a compile) is reported to the observer that `observe_compiles` installs
+in the calling context: the runner's, which counts it in
+`recompiles_total{kind}` and `compile_ms_total`, `kind` being the
+kernel's template (`fused_reduce`, `fused_reduce_multi`, `row_mask`).
 """
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import glob
 import hashlib
@@ -24,6 +31,8 @@ import time
 import weakref
 from collections import OrderedDict
 from pathlib import Path
+
+from tpu_olap_torch.obs import profile
 
 PACKAGE = Path(__file__).resolve().parent.parent
 BUILD = PACKAGE / "_build"
@@ -48,6 +57,32 @@ _libs: dict = {}
 # (source hash, shared bytes, device) -> CudaKernel, least recent first
 _kernels: OrderedDict = OrderedDict()
 _contexts: dict = {}     # device index -> primary context
+# callable(kind, ms) told of each NVRTC build in this context
+_compile_observer: contextvars.ContextVar = contextvars.ContextVar(
+    "tpu_olap_torch_compile_observer", default=None)
+
+
+class observe_compiles:
+    """Context manager: report every NVRTC build made inside it (on this
+    thread, and on threads that run a copy of its context) to
+    `observer(kind, ms)`."""
+
+    def __init__(self, observer):
+        self.observer = observer
+
+    def __enter__(self):
+        self._token = _compile_observer.set(self.observer)
+        return self
+
+    def __exit__(self, *exc):
+        _compile_observer.reset(self._token)
+        return False
+
+
+def template_kind(name: str) -> str:
+    """The kernel template a generated kernel's name belongs to:
+    "fused_reduce_gen" -> "fused_reduce"."""
+    return name[:-len("_gen")] if name.endswith("_gen") else name
 
 
 def nvrtc_library() -> ctypes.CDLL:
@@ -252,6 +287,9 @@ class CudaKernel:
         self.smem_bytes, self.device_index = smem_bytes, device_index
         cubin, self.log, self.compile_ms, self.cached = nvrtc_compile(
             source, name)
+        observer = _compile_observer.get()
+        if observer is not None and not self.cached:
+            observer(template_kind(name), self.compile_ms)
         self.report = ptxas_report(self.log)
         drv = driver()
         _context(device_index)
@@ -301,6 +339,8 @@ class CudaKernel:
         """Launch on `stream` with one by-value struct argument; raises on
         any CUresult but success."""
         _context(self.device_index)
+        if profile._capture_active:
+            profile.note_launch(self.name)
         args = (ctypes.c_void_p * 1)(ctypes.addressof(params))
         cu_check(driver().cuLaunchKernel(
             self._func, grid, 1, 1, self.threads, 1, 1, self.smem_bytes,

@@ -6,19 +6,24 @@ gauges and histograms rendered in the Prometheus text format (the same
 `tpu_olap` namespace and metric names as the JAX package), `events` is
 the structured JSON-lines event log, `slo` tracks the latency objective
 with a burn-rate gauge, and `workload` is the query-template profiler
-behind the cube advisor. The runner feeds all of them through
-`QueryRunner.record`.
-
-`obs/profile` (torch.profiler in place of the JAX profiler),
-`obs/timeseries` and `obs/sentinel` come with the rest of ROADMAP queue
-A item 14.
+behind the cube advisor and sys.query_templates. The runner feeds all
+of them through `QueryRunner.record`. `profile` exports span trees as
+Chrome traces and runs torch.profiler captures whose kernel launches
+carry their query ids, `timeseries` keeps each metric series' recent
+history, and `sentinel` raises stage-attributed drift and resource
+alerts.
 """
 
 from tpu_olap_torch.obs.events import EventLog  # noqa: F401
 from tpu_olap_torch.obs.metrics import (Counter, Gauge,  # noqa: F401
                                         Histogram, LATENCY_BUCKETS_MS,
                                         MetricsRegistry)
+from tpu_olap_torch.obs.profile import (annotate_dispatch,  # noqa: F401
+                                        capture_device_profile,
+                                        chrome_trace)
+from tpu_olap_torch.obs.sentinel import RegressionSentinel  # noqa: F401
 from tpu_olap_torch.obs.slo import SloTracker  # noqa: F401
+from tpu_olap_torch.obs.timeseries import TimeseriesSampler  # noqa: F401
 from tpu_olap_torch.obs.trace import (NULL_SPAN, Span, Trace,  # noqa: F401
                                       Tracer, current_query_id,
                                       current_span, span)

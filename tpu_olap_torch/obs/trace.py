@@ -20,8 +20,8 @@ running the work inside a `contextvars.copy_context()` snapshot.
 Clocks are monotonic (`time.perf_counter`); wall timestamps are recorded
 once per trace root for display only. Completed traces land in the
 tracer's bounded recent-ring, and traces slower than `slow_ms` also land
-in the slow-query ring (`GET /debug/queries` serves them once the HTTP
-server is ported, ROADMAP queue A item 14).
+in the slow-query ring, both served by `GET /debug/queries`
+(api.server).
 
 A copy of the JAX package's obs/trace.py: the same span names, the same
 contextvars, so that a port trace reads like a reference trace.

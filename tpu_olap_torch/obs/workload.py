@@ -3,10 +3,8 @@
 A host-only copy of the JAX package's obs/workload.py. In this package
 `QueryRunner.record` feeds the profiler once per record of a completed
 statement (fallback statements by their masked SQL), with the runner's
-metrics registry; its consumers here are the cube advisor
-(cubes.advisor) and `QueryRunner.workload.snapshot()`.
-`sys.query_templates` and `GET /debug/workload` come with the rest of
-ROADMAP queue A item 14.
+metrics registry; its consumers are the cube advisor (cubes.advisor),
+`sys.query_templates` and `GET /debug/workload`.
 
 The reference stack is observable *through its own query language*:
 Druid's `sys` schema and the broker query history are what drive
@@ -397,11 +395,9 @@ class WorkloadProfiler:
     # ----------------------------------------------------------- queries
 
     def snapshot(self, limit: int | None = None) -> list[dict]:
-        """Per-template stat rows, most-queried first — the cube
-        advisor's input (and, once the rest of ROADMAP queue A item 14
-        ports them,
-        the payload behind sys.query_templates and GET
-        /debug/workload)."""
+        """Per-template stat rows, most-queried first — the payload
+        behind sys.query_templates, GET /debug/workload, and the cube
+        advisor's input."""
         with self._lock:
             items = [(tid, st, list(st.latencies))
                      for tid, st in self._templates.items()]

@@ -26,8 +26,8 @@ rows on the host instead of scanning the base table on the device:
 Staleness: a cube is only consulted while its recorded base generation
 matches the live table (the result cache's contract — stale state is
 unservable at check time, before any maintenance runs). Every outcome
-is counted (`CubeRegistry.rewrites`) and a serve's metrics carry
-`path="cube"` and route "cube".
+is counted (`cube_rewrite_total{result}` and `CubeRegistry.rewrites`)
+and a serve's metrics carry `path="cube"` and route "cube".
 
 The fold is host work, as in the JAX package: the port's own
 compile_filter, DimPlan.ids, BucketPlan.ids and build_group_key run over
@@ -38,9 +38,10 @@ path: one launch of the segment-extended fused reduce over just those
 segments (QueryRunner._run_seg_partials, the pass tier 1 trusts), under
 its own admission slot, the breaker check and the retry layer, one copy
 back, merged into the cube's fold before finalize. A serve leaves one
-history record (route and path "cube"); the JAX package's
-`cube-rewrite` span and the cube metrics come with the rest of ROADMAP
-queue A item 14.
+history record (route and path "cube") and runs under a `cube-rewrite`
+span (attributes `served`, `cube`, `cube_rows_scanned`,
+`delta_segments`, or `refused` with the reason), with `finalize`,
+`post-agg` and `assemble` below it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from tpu_olap_torch.kernels.groupby import (_ident, build_group_key,
                                             partials_radix, torch_dtype)
 from tpu_olap_torch.kernels.hll import NUM_REGISTERS
 from tpu_olap_torch.kernels.theta import EMPTY as THETA_EMPTY
+from tpu_olap_torch.obs.trace import span as _span
 from tpu_olap_torch.segments.segment import TIME_COLUMN
 
 __all__ = ["try_serve_cube"]
@@ -416,86 +418,95 @@ def try_serve_cube(engine, plan_result):
     runner = engine.runner
     try:
         from tpu_olap_torch.executor.resultcache import _config_sig
-        # tier-2 first: an identical repeat is cheaper as a cache hit
-        # than a re-fold
-        hit = runner._serve_full_cache(query, table)
-        if hit is not None:
-            runner.last_metrics = hit.metrics
-            return hit
-        phys = runner._lower_cached(query, table)
-        cfg_sig = _config_sig(engine.config)
-        reason = "no candidate"
-        for cube, data, cube_cfg in candidates:
-            if cube_cfg != cfg_sig:
-                reason = "result-affecting config changed"
-                continue
-            reason = _covering_reason(query, phys, cube.spec, data,
-                                      engine.config)
-            if reason is not None:
-                continue
-            keep = _interval_keep_mask(query, data)
-            if keep is None:
-                reason = "intervals straddle a cube bucket"
-                continue
-            # serve-cost bailout: a cube that is not a clear row-count
-            # win would slow down a query that manifest pruning already
-            # made cheap; those stay on the base path
-            kept_n = int(np.count_nonzero(keep))
-            min_red = float(engine.config.cube_serve_min_reduction or 0.0)
-            if min_red > 1.0:
-                base_rows = sum(phys.table.segments[i].meta.n_valid
-                                for i in phys.pruned_ids)
-                if kept_n * min_red > base_rows:
-                    reason = (f"{kept_n} cube rows are not a "
-                              f">={min_red:g}x reduction of the "
-                              f"{base_rows}-row base scan")
+        with _span("cube-rewrite") as sp:
+            # tier-2 first: an identical repeat is cheaper as a cache hit
+            # than a re-fold
+            hit = runner._serve_full_cache(query, table)
+            if hit is not None:
+                sp.set(served="result-cache")
+                runner.last_metrics = hit.metrics
+                return hit
+            phys = runner._lower_cached(query, table)
+            cfg_sig = _config_sig(engine.config)
+            reason = "no candidate"
+            for cube, data, cube_cfg in candidates:
+                if cube_cfg != cfg_sig:
+                    reason = "result-affecting config changed"
                     continue
-            # delta remainder: rows appended since the sealed set the
-            # cube covers fold through the BASE path — exact per-segment
-            # partials in this plan's own layout (interval and WHERE
-            # handled by the kernel, as tier 1 does for straddlers),
-            # merged with the cube's sealed-scope fold before finalize.
-            # Zero stale serves by construction: sealed rows come from
-            # the cube, delta rows from the live snapshot, and the
-            # scopes are disjoint.
-            delta_ids = [sid for sid in phys.pruned_ids
-                         if not table.segment_sealed(sid)]
-            if delta_ids:
-                reason = _delta_fold_reason(phys, delta_ids,
-                                            engine.config)
+                reason = _covering_reason(query, phys, cube.spec, data,
+                                          engine.config)
                 if reason is not None:
                     continue
-            env = _dim_env(phys, data, keep)
-            fmask = _filter_mask(query, phys, env, kept_n)
-            partials, scanned = _fold_partials(query, phys, data, env,
-                                               keep, fmask)
-            dmet: dict = {}
-            if delta_ids:
-                partials, delta_scanned, dmet = _merge_delta_partials(
-                    runner, phys, partials, delta_ids, entry.name)
-                scanned += delta_scanned
-            res = _finish(runner, query, phys, partials)
-            registry.note_serve(cube)
-            registry.count_request("served")
-            m = {"query_type": query.query_type, "datasource": entry.name,
-                 "route": "cube", "host_copies": dmet.get("host_copies", 0),
-                 "cube": cube.spec.name,
-                 "cube_rows": data.n_rows,
-                 "rows_scanned": int(scanned),
-                 "delta_segments": len(delta_ids),
-                 "segments_scanned": len(delta_ids),
-                 "segments_total": len(table.segments),
-                 "cache_hit": False,
-                 "rows_returned": len(res.rows),
-                 "_wl": runner.fingerprint(query, entry.name),
-                 "total_ms": (time.perf_counter() - t0) * 1000}
-            fp = m["_wl"]
-            res.metrics = m
-            runner.last_metrics = runner.record(m)
-            runner._store_full_cache(query, table, res, fp)
-            return res
-        registry.count_request("refused")
-        return None
+                keep = _interval_keep_mask(query, data)
+                if keep is None:
+                    reason = "intervals straddle a cube bucket"
+                    continue
+                # serve-cost bailout: a cube that is not a clear
+                # row-count win would slow down a query that manifest
+                # pruning already made cheap; those stay on the base path
+                kept_n = int(np.count_nonzero(keep))
+                min_red = float(
+                    engine.config.cube_serve_min_reduction or 0.0)
+                if min_red > 1.0:
+                    base_rows = sum(phys.table.segments[i].meta.n_valid
+                                    for i in phys.pruned_ids)
+                    if kept_n * min_red > base_rows:
+                        reason = (f"{kept_n} cube rows are not a "
+                                  f">={min_red:g}x reduction of the "
+                                  f"{base_rows}-row base scan")
+                        continue
+                # delta remainder: rows appended since the sealed set
+                # the cube covers fold through the BASE path — exact
+                # per-segment partials in this plan's own layout
+                # (interval and WHERE handled by the kernel, as tier 1
+                # does for straddlers), merged with the cube's
+                # sealed-scope fold before finalize. Zero stale serves
+                # by construction: sealed rows come from the cube, delta
+                # rows from the live snapshot, and the scopes are
+                # disjoint.
+                delta_ids = [sid for sid in phys.pruned_ids
+                             if not table.segment_sealed(sid)]
+                if delta_ids:
+                    reason = _delta_fold_reason(phys, delta_ids,
+                                                engine.config)
+                    if reason is not None:
+                        continue
+                env = _dim_env(phys, data, keep)
+                fmask = _filter_mask(query, phys, env, kept_n)
+                partials, scanned = _fold_partials(query, phys, data,
+                                                   env, keep, fmask)
+                dmet: dict = {}
+                if delta_ids:
+                    partials, delta_scanned, dmet = \
+                        _merge_delta_partials(runner, phys, partials,
+                                              delta_ids, entry.name)
+                    scanned += delta_scanned
+                res = _finish(runner, query, phys, partials)
+                sp.set(cube=cube.spec.name, cube_rows_scanned=scanned,
+                       delta_segments=len(delta_ids))
+                registry.note_serve(cube)
+                registry.count_request("served")
+                m = {"query_type": query.query_type,
+                     "datasource": entry.name, "route": "cube",
+                     "host_copies": dmet.get("host_copies", 0),
+                     "cube": cube.spec.name,
+                     "cube_rows": data.n_rows,
+                     "rows_scanned": int(scanned),
+                     "delta_segments": len(delta_ids),
+                     "segments_scanned": len(delta_ids),
+                     "segments_total": len(table.segments),
+                     "cache_hit": False,
+                     "rows_returned": len(res.rows),
+                     "_wl": runner.fingerprint(query, entry.name),
+                     "total_ms": (time.perf_counter() - t0) * 1000}
+                fp = m["_wl"]
+                res.metrics = m
+                runner.last_metrics = runner.record(m)
+                runner._store_full_cache(query, table, res, fp)
+                return res
+            sp.set(refused=reason)
+            registry.count_request("refused")
+            return None
     except Exception:  # noqa: BLE001 — the base path answers instead
         registry.count_request("error")
         return None
@@ -509,6 +520,9 @@ def _finish(runner, query, phys, partials):
                                                  theta_raw_fields)
     specs = agg_specs_by_name(query.aggregations)
     keep_raw = theta_raw_fields(query.post_aggregations)
-    arrays = finalize_aggs(partials, phys.agg_plans, specs, keep_raw)
-    eval_post_aggs(arrays, query.post_aggregations)
-    return runner._assemble_agg(query, phys, arrays)
+    with _span("finalize"):
+        arrays = finalize_aggs(partials, phys.agg_plans, specs, keep_raw)
+    with _span("post-agg"):
+        eval_post_aggs(arrays, query.post_aggregations)
+    with _span("assemble"):
+        return runner._assemble_agg(query, phys, arrays)

@@ -36,15 +36,14 @@ generation-current cubes SURVIVE delta-only appends — cube serves clip
 at the sealed scope and fold the delta remainder through the base path
 (planner.cuberewrite), zero stale serves by construction.
 
-The port keeps the JAX package's logic, WAL format, store format and
-fault sites as they are. Its metrics (`ingest_rows_total`,
-`delta_rows`, `wal_bytes`, `compactions_total`, ...), its `ingest` /
-`compact` / `checkpoint` / `wal_replay` / `store_load` events, the
-`checkpoint` span, `sys.checkpoints` and `GET /debug/ingest` come with
-the rest of ROADMAP queue A item 14 (the metrics registry, the event log
-and the tracer are ported; the ingest path does not feed them yet);
-until then `TableIngestState` keeps the compactor's errors and the last
-store load's fallbacks, and `snapshot()` reads the rest.
+The port keeps the JAX package's logic, WAL format, store format, fault
+sites and observability as they are: the metrics (`ingest_rows_total`,
+`delta_rows`, `wal_bytes`, `compactions_total`, `checkpoints_total`,
+`store_bytes`, ...), the `ingest`, `compact`, `checkpoint`,
+`wal_replay`, `store_load` and `store_fallback` events, the
+`checkpoint` span, `store_rows()` behind sys.checkpoints and
+`snapshot()` behind GET /debug/ingest. `TableIngestState` also keeps
+the compactor's errors and the last store load's fallbacks.
 """
 
 from __future__ import annotations
@@ -55,6 +54,7 @@ import time
 
 import numpy as np
 
+from tpu_olap_torch.obs.trace import span as _span
 from tpu_olap_torch.resilience.errors import (IngestBackpressure, QueryShed,
                                         UserError)
 from tpu_olap_torch.resilience.faults import maybe_inject
@@ -630,6 +630,46 @@ class IngestManager:
         # thread — this is its PeriodicHandle
         self._compact_handle = None
         self._stopped = False
+        m = engine.metrics
+        self._m_rows = m.counter(
+            "ingest_rows_total",
+            "Rows appended through the real-time ingest path "
+            "(Engine.append / POST /ingest / INSERT INTO).", ("table",))
+        self._m_backpressure = m.counter(
+            "ingest_backpressure_total",
+            "Appends rejected with 429 because the delta hit "
+            "ingest_max_delta_rows.", ("table",))
+        self._m_delta = m.gauge(
+            "delta_rows",
+            "Rows currently resident in the mutable delta scope.",
+            ("table",))
+        self._m_wal = m.gauge(
+            "wal_bytes", "Bytes in the table's write-ahead log.",
+            ("table",))
+        self._m_compact = m.counter(
+            "compactions_total",
+            "Delta-to-sealed compactions completed.", ("table",))
+        self._m_compact_err = m.counter(
+            "compact_errors_total",
+            "Background compactions that raised (retried next tick).",
+            ("table",))
+        self._m_checkpoint = m.counter(
+            "checkpoints_total",
+            "Durable sealed-segment checkpoints committed "
+            "(segments/store.py; docs/DURABILITY.md).", ("table",))
+        self._m_checkpoint_err = m.counter(
+            "checkpoint_errors_total",
+            "Checkpoints that failed before the manifest swap (the "
+            "previous checkpoint stays authoritative).", ("table",))
+        self._m_store_bytes = m.gauge(
+            "store_bytes",
+            "Bytes of spilled sealed-segment chunks referenced by the "
+            "table's newest checkpoint manifest.", ("table",))
+        self._m_store_fallback = m.counter(
+            "store_load_fallbacks_total",
+            "Recovery-ladder rungs stepped over (corrupt/missing "
+            "chunk or torn manifest) while loading a checkpoint.",
+            ("table",))
         # durable sealed-segment store (docs/DURABILITY.md): None when
         # ingest_store_dir is unset — recovery then replays the whole
         # WAL, the pre-checkpoint behavior
@@ -745,6 +785,7 @@ class IngestManager:
             table = entry.segments
             cap = int(cfg.ingest_max_delta_rows or 0)
             if cap and table.delta_rows + len(canon) > cap:
+                self._m_backpressure.inc(table=name)
                 self._ensure_compactor(wake=True)
                 need = table.delta_rows + len(canon) - cap
                 raise IngestBackpressure(
@@ -761,11 +802,11 @@ class IngestManager:
             enc = encode_rows(table, canon,
                               require_time=entry.time_column is not None)
             delta_frame = self._delta_frame(entry, canon)
-            seq = None
+            seq = wal_bytes = None
             wal = self._wal_for(st)
             if wal is not None:
                 maybe_inject(cfg, "wal-write", 0)
-                seq, _ = wal.append(canon)
+                seq, wal_bytes = wal.append(canon)
                 st.acked_seq = seq
             new_table = extend_snapshot(table, enc)
             entry.segments = new_table
@@ -781,6 +822,15 @@ class IngestManager:
         # generation; purge eagerly), sealed-segment partials are NOT
         # (their scope generation did not move) — docs/INGEST.md
         runner.result_cache.invalidate_full(name)
+        self._m_rows.inc(len(canon), table=name)
+        self._m_delta.set(new_table.delta_rows, table=name)
+        if wal_bytes is not None:
+            self._m_wal.set(wal_bytes, table=name)
+        runner.events.emit(
+            "ingest", table=name, kind="append", rows=len(canon),
+            generation=new_table.generation,
+            sealed_generation=new_table.sealed_generation,
+            delta_rows=new_table.delta_rows, wal_seq=seq)
         if cfg.ingest_auto_compact and \
                 new_table.delta_rows >= int(cfg.ingest_compact_rows):
             self._ensure_compactor(wake=True)
@@ -805,13 +855,16 @@ class IngestManager:
         with self._lock:
             st_prev = self._states.pop(name, None)
         if st_prev is not None:
+            self._m_delta.set(0, table=name)
             if self.store is not None:
                 # the spilled checkpoints covered the replaced data
                 self.store.delete_table(name)
+                self._m_store_bytes.set(0, table=name)
             wal = st_prev.wal
             if wal is not None and not wal._closed and not wal.tainted:
                 wal.reset()
                 wal.close()
+                self._m_wal.set(0, table=name)
             elif cfg.ingest_wal_dir:
                 # no live handle to reset through (never appended, or
                 # closed by Engine.close, or tainted by a failed
@@ -823,6 +876,7 @@ class IngestManager:
                     os.unlink(wal_path(cfg.ingest_wal_dir, name))
                 except OSError:
                     pass
+                self._m_wal.set(0, table=name)
             return
         if not entry.is_accelerated or name.startswith("__cube_") \
                 or not cfg.ingest_wal_dir or not cfg.ingest_wal_replay:
@@ -879,9 +933,19 @@ class IngestManager:
         if loaded is None:
             return 0
         self._state(name).store_fallbacks = list(loaded.fallbacks)
+        for mfile, reason in loaded.fallbacks:
+            self._m_store_fallback.inc(table=name)
+            eng.runner.events.emit(
+                "store_fallback", table=name, manifest=mfile,
+                reason=reason[:300])
         if loaded.segments is None:
             return 0
         if loaded.segments.schema != entry.segments.schema:
+            eng.runner.events.emit(
+                "store_fallback", table=name,
+                manifest="(schema)",
+                reason="checkpoint schema does not match the "
+                       "registered base; ignoring the store")
             return 0
         sealed = loaded.segments
         sealed.star = entry.star
@@ -904,6 +968,13 @@ class IngestManager:
         st.sealed_through_seq = loaded.wal_seq
         stats = self.store.table_stats(name) or {}
         st.last_checkpoint = {"status": "loaded", **stats}
+        self._m_store_bytes.set(int(stats.get("bytes", 0)), table=name)
+        eng.runner.events.emit(
+            "store_load", table=name,
+            checkpoint_id=loaded.manifest["checkpoint_id"],
+            wal_seq=loaded.wal_seq, segments=len(sealed.segments),
+            rows=sealed.num_rows,
+            fallbacks=len(loaded.fallbacks))
         return loaded.wal_seq
 
     def _replay(self, entry, records):
@@ -944,6 +1015,12 @@ class IngestManager:
                 self._states.pop(name, None)
             raise
         ms = (time.perf_counter() - t0) * 1000
+        self._m_rows.inc(len(all_rows), table=name)
+        self._m_delta.set(entry.segments.delta_rows, table=name)
+        eng.runner.events.emit(
+            "wal_replay", table=name, records=len(records),
+            rows=len(all_rows), ms=round(ms, 3),
+            generation=entry.segments.generation)
         if cfg.ingest_auto_compact and entry.segments.delta_rows \
                 >= int(cfg.ingest_compact_rows):
             self._ensure_compactor(wake=True)
@@ -953,9 +1030,12 @@ class IngestManager:
             st = self._states.pop(name, None)
         if self.store is not None:
             self.store.delete_table(name)
+            self._m_store_bytes.set(0, table=name)
         if st is not None:
+            self._m_delta.set(0, table=name)
             if st.wal is not None:
                 st.wal.delete()
+                self._m_wal.set(0, table=name)
 
     # ---------------------------------------------------------- compactor
 
@@ -1002,11 +1082,18 @@ class IngestManager:
                 # never silently: a persistently failing compaction
                 # means the delta grows until every append sheds,
                 # and the operator needs a visible cause
+                self._m_compact_err.inc(table=name)
                 with self._lock:
                     st = self._states.get(name)
                 if st is not None:
                     st.compact_errors += 1
                     st.last_compact_error = f"{type(e).__name__}: {e}"
+                try:
+                    self.engine.runner.events.emit(
+                        "compact_error", table=name,
+                        error=f"{type(e).__name__}: {e}")
+                except Exception:  # noqa: BLE001
+                    pass
 
     def compact_now(self, name: str) -> dict | None:
         """Seal the table's delta (sync spelling; the compactor loop
@@ -1108,7 +1195,20 @@ class IngestManager:
             live = {merged.segment_cache_token(i)
                     for i in range(len(merged.segments))}
             runner.result_cache.invalidate_compacted(name, live)
+            self._m_compact.inc(table=name)
+            self._m_delta.set(merged.delta_rows, table=name)
             self._observe_drain(st, d_snap, st.last_compact_ms)
+            runner.events.emit(
+                "compact", table=name,
+                rows_sealed=compacted.num_rows,
+                delta_rows_folded=d_snap,
+                delta_rows_carried=int(d_live - d_snap),
+                segments=len(compacted.segments),
+                mode=cinfo["mode"],
+                segments_reused=cinfo["segments_reused"],
+                ms=round(st.last_compact_ms, 3),
+                generation=merged.generation,
+                sealed_generation=merged.sealed_generation)
             eng.cubes.on_table_registered(name)
             # durability hook (docs/DURABILITY.md): the sealed set just
             # changed — spill it, advance the manifest, truncate the
@@ -1122,6 +1222,10 @@ class IngestManager:
                     checkpoint = self._checkpoint_sealed(name, entry, st)
                 except Exception as e:  # noqa: BLE001 — surfaced, never
                     # silently: durability lag is operator-visible
+                    self._m_checkpoint_err.inc(table=name)
+                    runner.events.emit(
+                        "checkpoint_error", table=name,
+                        error=f"{type(e).__name__}: {e}")
                     checkpoint = {"status": "error",
                                   "error": f"{type(e).__name__}: {e}"}
             return {"table": name, "status": "compacted",
@@ -1193,7 +1297,8 @@ class IngestManager:
         (same thread); invoked sync (the CHECKPOINT verb) it takes one
         slot — either way the spill shows up as a `checkpoint` span
         under background-stage occupancy accounting."""
-        with self.engine.runner.stages.stage("background"):
+        with self.engine.runner.stages.stage("background"), \
+                _span("checkpoint"):
             return self._checkpoint_commit(name, entry, st)
 
     def _checkpoint_commit(self, name: str, entry, st) -> dict:
@@ -1237,12 +1342,26 @@ class IngestManager:
                         int(info.get("truncate_through") or 0))
                 if info["status"] == "checkpointed":
                     st.checkpoints += 1
+                    self._m_checkpoint.inc(table=name)
+            self._m_store_bytes.set(int(info.get("bytes", 0)),
+                                    table=name)
             ms = (time.perf_counter() - t0) * 1000
             info = {**info, "wal_seq": wal_seq,
                     "wal_frames_truncated": truncated,
                     "ms": round(ms, 3)}
             with st.lock:
                 st.last_checkpoint = info
+            if info["status"] == "checkpointed":
+                self.engine.runner.events.emit(
+                    "checkpoint", table=name,
+                    checkpoint_id=info["checkpoint_id"],
+                    segments=info["segments"],
+                    files_written=info["files_written"],
+                    chunks_reused=info["chunks_reused"],
+                    bytes=info["bytes"], wal_seq=wal_seq,
+                    truncate_through=info["truncate_through"],
+                    wal_frames_truncated=truncated,
+                    ms=info["ms"])
             return info
         finally:
             with st.lock:
@@ -1265,6 +1384,7 @@ class IngestManager:
             wal = st.wal
             if wal is not None and not wal._closed and not wal.tainted:
                 dropped = wal.truncate_through(through_seq)
+                self._m_wal.set(wal.bytes_written, table=name)
                 return dropped
             if self.config.ingest_wal_dir:
                 return truncate_file_through(
@@ -1275,8 +1395,8 @@ class IngestManager:
     # ------------------------------------------------------------- admin
 
     def snapshot(self) -> dict:
-        """Per-table delta sizes, WAL lag and compactor state (the JAX
-        package's GET /debug/ingest payload)."""
+        """GET /debug/ingest payload: per-table delta sizes, WAL lag and
+        compactor state."""
         cfg = self.config
         eng = self.engine
         tables = {}
@@ -1341,6 +1461,36 @@ class IngestManager:
                       "checkpoint_on_compact":
                           bool(cfg.ingest_store_checkpoint_on_compact)},
         }
+
+    def store_rows(self) -> list:
+        """sys.checkpoints rows (catalog.systables): one per table with
+        durable-checkpoint state — manifest id, WAL watermark, spilled
+        bytes/files, and how much of the log the checkpoint let the
+        engine truncate away."""
+        rows = []
+        with self._lock:
+            states = dict(self._states)
+        for name, st in sorted(states.items()):
+            entry = self.engine.catalog.maybe(name)
+            if entry is None or not entry.is_accelerated:
+                continue
+            stats = (self.store.table_stats(name) or {}) \
+                if self.store is not None else {}
+            last = st.last_checkpoint or {}
+            rows.append({
+                "table": name,
+                "checkpoint_id": stats.get("checkpoint_id"),
+                "wal_watermark": stats.get("wal_seq"),
+                "sealed_through_seq": st.sealed_through_seq,
+                "acked_seq": st.acked_seq,
+                "checkpoints": st.checkpoints,
+                "segments": stats.get("segments"),
+                "bytes": stats.get("bytes"),
+                "chunks_reused": last.get("chunks_reused"),
+                "manifests_retained": stats.get("manifests_retained"),
+                "last_status": last.get("status"),
+            })
+        return rows
 
     def stop(self):
         """Deterministically cancel the compactor graph (joining an
