@@ -229,13 +229,37 @@ Phases, each printing its own line; any failure exits nonzero:
      after sentinel_clear_after_s; (f) a 1 s torch.cuda._sleep spin at
      the dispatch site under a 0.5 s deadline: POST /sql 504, GET
      /readyz 503 while it spins, and after it q2.1 200 and /readyz 200.
+  16. the mesh (executor.sharding), after 15, at most 60 s: 4 logical
+     devices laid over the one card (utils.platform.
+     force_virtual_devices(4)), engines at num_shards=4 over the SF1
+     segments (98 segments padded to 100, 25 per device). (a) the 13
+     under "historicals" and under force_strategy="broker": every answer
+     == phase 4's exactly, B1 4 launches per statement, each on its
+     device's stacks, 4 or 1 device-to-host copies; every launch replayed
+     against the plain version (exact); B1 at q2.1 on one device's
+     inputs against its bound; p50 over 3 runs of D=1, D=4 historicals
+     and D=4 broker in turns; the "cuda" entry of planner/
+     cost_calibration.json fitted from those p50s (printed, the merge's
+     bytes term from the datasheet); (b) x4 under "exchange" and
+     "gather" == D=1 exactly; (c) phase 12 (a)'s q2.1 sliding window with
+     tier 1: 4 segment-extended launches per step, == caches off exactly,
+     no NVRTC compile at a local window width seen before, every launch
+     replayed (exact); (d) the 13 as one sql_batch: the multi-leg kernel
+     4 times per fused group, B1 4 times per single leg, every answer ==
+     phase 4's, replayed (exact); (e) phase 8's scans, pages and
+     searches: the row-mask kernel 4 times each, == a D=1 engine's
+     exactly, replayed (exact); (f) a failed first dispatch with
+     degrade_shards_on_retry: 4 -> 2 devices, q2.1 == phase 4's; (g)
+     sys.devices: 4 rows whose hbm_bytes sum to the ledger's, at most
+     torch.cuda.memory_allocated. The 4 devices share one card: no
+     cross-device copy and no multi-GPU speed is measured.
   Every engine the smoke builds has fallback_on_device_failure off
   (new_engine), so a failure on the card's path fails the smoke instead
   of being served by the pandas interpreter; (e) turns it on only for
   the serve while the breaker is open.
 Every engine runs pipelined (EngineConfig.pipeline_depth 4) unless a
 phase says otherwise. The phases run in the order 1-4, 10, 5-8, 11, 12,
-13, 14, 15, 9. Every torch.profiler
+13, 14, 15, 16, 9. Every torch.profiler
 reading stands only when
 its profile holds one device activity for each kernel launch, copy and
 fill the host issued in it (`profiled`): the profiler now and then drops
@@ -3741,6 +3765,380 @@ def serving_phase(seg, tables, frames, tag):
           f" s", flush=True)
 
 
+MESH_D = 4                             # logical devices of phase 16
+NVLINK4_BYTES_PER_S = 450e9            # H100 NVLink 4, one direction
+
+
+def mesh_phase(seg, tables, frames, tag, flush_l2):
+    """Phase 16: the mesh, MESH_D logical devices over the one card
+    (utils.platform.force_virtual_devices), on engines over the SF1
+    segments. Returns (the mesh's B1 JSON entry, the fitted "cuda"
+    calibration entry)."""
+    import math
+
+    import numpy as np
+    import pandas as pd
+    import torch
+    from tpu_olap_torch.bench import ssb
+    from tpu_olap_torch.executor.sharding import pad_segments
+    from tpu_olap_torch.kernels import cuda_build
+    from tpu_olap_torch.kernels import fused_reduce as fr
+    from tpu_olap_torch.kernels import row_mask as rm
+    from tpu_olap_torch.utils.platform import force_virtual_devices
+    D = MESH_D
+    names = list(ssb.QUERIES)
+    engines = []
+
+    def engine(**cfg):
+        e = ssb_engine(seg, tables, **cfg)
+        engines.append(e)
+        return e
+
+    def same(got, want, label):
+        try:
+            pd.testing.assert_frame_equal(got, want, check_exact=True)
+        except AssertionError as e:
+            fail(f"16 {label}: the mesh's answer differs: {e}")
+
+    force_virtual_devices(D)
+    try:
+        one = engine()
+        mesh = engine(num_shards=D)
+        devs = mesh.runner.mesh.devices
+        n_seg = len(seg.segments)
+        print(f"[16 mesh] {D} logical devices {[str(d) for d in devs]} over "
+              f"{torch.cuda.device_count()} card(s): {n_seg} segments "
+              f"padded to {pad_segments(n_seg, D)}, "
+              f"{pad_segments(n_seg, D) // D} per device; the devices share "
+              f"one card, so no cross-device copy and no multi-GPU speed "
+              f"is measured here {tag}", flush=True)
+
+        # (a) the 13 under both merges: B1 once per device per statement
+        calls, current, real = {}, [None], fr.fused_reduce
+
+        def record(*a):
+            calls.setdefault(current[0], []).append(a)
+            return real(*a)
+        got, per = {}, {}
+        fr.fused_reduce = record
+        fr.launches = 0
+        try:
+            for strategy in ("historicals", "broker"):
+                mesh.config.force_strategy = strategy
+                for name in names:
+                    current[0] = (strategy, name)
+                    before = fr.launches
+                    got[(strategy, name)] = mesh.sql(ssb.QUERIES[name])
+                    per[(strategy, name)] = (fr.launches - before,
+                                             dict(mesh.runner.last_metrics))
+            torch.cuda.synchronize()
+            b1_launches = fr.launches
+        finally:
+            fr.fused_reduce = real
+        for (strategy, name), (n, m) in per.items():
+            copies = D if strategy == "historicals" else 1
+            if n != D or m.get("num_shards") != D \
+                    or m.get("strategy") != strategy or not m.get("fused") \
+                    or m.get("host_copies") != copies:
+                fail(f"16 {name} {strategy}: B1 launches {n} (want {D}), "
+                     f"num_shards {m.get('num_shards')}, strategy "
+                     f"{m.get('strategy')}, fused {m.get('fused')} "
+                     f"({m.get('fused_reason')}), copies "
+                     f"{m.get('host_copies')} (want {copies})")
+            same(got[(strategy, name)], frames[name], f"{name} {strategy}")
+        max_err = 0
+        for key, launched in calls.items():
+            for c, a in enumerate(launched):
+                if a[2].device != devs[c]:
+                    fail(f"16 {key}: device {c}'s launch read tensors on "
+                         f"{a[2].device}, not {devs[c]}")
+                max_err = max(max_err, check_kernel(
+                    fr, a, f"16 {key} device {c}")[0])
+        print(f"[16 agg] the 13 under historicals and broker: every answer "
+              f"== phase 4's exactly; B1 {D} launches per statement "
+              f"({b1_launches} in all), each on its device's stacks; "
+              f"device-to-host copies per statement: historicals {D}, broker "
+              f"1; every launch replayed against the plain version: max "
+              f"|kernel - plain| = {max_err} {tag}", flush=True)
+        a = calls[("historicals", "q2.1")][0]
+        row = kernel_times("q2.1", a, fr.fused_reduce(*a)[0], max_err,
+                           b1_launches, tag, flush_l2, label=" mesh",
+                           phase="16")
+
+        # p50 over 3 runs, D = 1 and D = 4 in turns
+        modes = (("D=1", one, None), ("D=4 historicals", mesh, "historicals"),
+                 ("D=4 broker", mesh, "broker"))
+        ts = {(label, n): [] for label, _, _ in modes for n in names}
+        for name in names:
+            q = ssb.QUERIES[name]
+            for rep in range(4):   # the first is a warm-up
+                for label, e, strategy in modes:
+                    if strategy is not None:
+                        e.config.force_strategy = strategy
+                    t = time.perf_counter()
+                    e.sql(q)
+                    if rep:
+                        ts[(label, name)].append(
+                            (time.perf_counter() - t) * 1000)
+        p50 = {k: float(np.median(v)) for k, v in ts.items()}
+        for name in names:
+            print(f"[16 p50] {name}: "
+                  + " | ".join(f"{label} {p50[(label, name)]:.3f} ms"
+                               for label, _, _ in modes) + f" {tag}",
+                  flush=True)
+        tot = {label: sum(p50[(label, n)] for n in names)
+               for label, _, _ in modes}
+        print("[16 p50] sum over the 13: " + " | ".join(
+            f"{k} {v:.3f} ms" for k, v in tot.items()) + f" {tag}",
+            flush=True)
+        # the "cuda" calibration entry of planner/cost_calibration.json
+        work = []
+        for name in names:
+            plan = one.runner._lower_cached(
+                one.planner.plan(ssb.QUERIES[name]).query, seg)
+            rows = sum(seg.segments[i].meta.n_valid for i in plan.pruned_ids)
+            work.append(rows * max(1, len(plan.columns)))
+        x = np.asarray(work, np.float64)
+        y = np.asarray([p50[("D=1", n)] * 1e6 for n in names])  # ns
+        slope, intercept = np.polyfit(x, y, 1)
+        scan = float(slope) if slope > 0 else float(np.median(y / x))
+        hops = max(1, math.ceil(math.log2(D)))
+        lat = max(0.0, float(np.median(
+            [p50[("D=4 historicals", n)] - p50[("D=1", n)]
+             for n in names])) * 1000 / hops)
+        over = float(np.median([p50[("D=4 broker", n)]
+                                / p50[("D=4 historicals", n)]
+                                for n in names]))
+        fit = {"scan_ns_per_row_col": round(scan, 6),
+               "merge_ns_per_byte": round(1e9 / NVLINK4_BYTES_PER_S, 6),
+               "collective_lat_us": round(lat, 3),
+               "gspmd_overhead": round(over, 4),
+               "fitted_shards": D, "fitted_queries": len(names),
+               "note": (f"chip_smoke.py phase 16 on {card_name(tag)}: "
+                        f"scan = slope of the 13's D=1 p50 over rows x "
+                        f"columns (intercept {intercept / 1e6:.3f} ms); "
+                        f"collective_lat_us = median (D={D} historicals - "
+                        f"D=1) p50 per merge step, the {D} devices sharing "
+                        f"one card; gspmd_overhead = median D={D} broker / "
+                        f"historicals p50; merge_ns_per_byte from the H100 "
+                        f"datasheet (NVLink 4, 450 GB/s a direction), not "
+                        f"measured: one card has no second device to copy "
+                        f"to")}
+        print(f"[16 calibration] {json.dumps({'cuda': fit})}", flush=True)
+
+        # (b) the sparse group-by: x4 under exchange and gather
+        x4 = ssb.DISTINCT_QUERIES["x4"]
+        want = one.sql(x4)
+        for merge in ("exchange", "gather"):
+            mesh.config.sparse_merge = merge
+            t = time.perf_counter()
+            g = mesh.sql(x4)
+            ms = (time.perf_counter() - t) * 1000
+            m = mesh.runner.last_metrics
+            if m.get("route") != "sparse" or m.get("num_shards") != D or \
+                    m.get("sparse_merge") != (
+                        "exchange" if merge == "exchange" else None):
+                fail(f"16 x4 {merge}: route {m.get('route')}, shards "
+                     f"{m.get('num_shards')}, merge {m.get('sparse_merge')}")
+            same(g, want, f"x4 {merge}")
+            print(f"[16 sparse] x4 under {merge}: == D=1 exactly; groups "
+                  f"{m.get('result_groups')}, local cap "
+                  f"{m.get('result_cap')}, re-runs {m.get('sparse_reruns')}"
+                  + (f", largest owner table {m.get('result_cap_owner')}"
+                     if merge == "exchange" else "")
+                  + f", copies {m.get('host_copies')}, first run "
+                  f"{ms:.1f} ms {tag}", flush=True)
+
+        # (c) tier 1: phase 12 (a)'s q2.1 sliding window
+        steps = tier1_statements(ssb)["q2.1"]
+        off = [one.sql(q) for q in steps]   # caches off: the reference
+        t1 = engine(num_shards=D, segment_cache_enabled=True,
+                    segment_cache_min_rows=0)
+        seg_calls, real_seg = [], fr.fused_reduce_seg
+
+        def record_seg(*a):
+            seg_calls.append(a)
+            return real_seg(*a)
+        fr.fused_reduce_seg = record_seg
+        fr.seg_launches = fr.launches = 0
+        lines, widths = [], set()
+        try:
+            for i, q in enumerate(steps):
+                before, n_k = fr.seg_launches, len(cuda_build._kernels)
+                g = t1.sql(q)
+                m = dict(t1.runner.last_metrics)
+                n_launch = fr.seg_launches - before
+                compiles = len(cuda_build._kernels) - n_k
+                W = m.get("segments_window_per_chip")
+                same(g, off[i], f"tier 1 step {i}")
+                if n_launch != D or m.get("route") != "segment_cache" \
+                        or (W in widths and compiles):
+                    fail(f"16 tier 1 step {i}: {n_launch} segment-extended "
+                         f"launches (want {D}), route {m.get('route')}, "
+                         f"{compiles} compiles at a local width {W} seen "
+                         f"before")
+                widths.add(W)
+                lines.append(f"step {i}: computed {m['segments_computed']}, "
+                             f"cached {m['segments_cached']}, local window "
+                             f"{W}, {n_launch} launches, {compiles} NVRTC "
+                             f"compiles, copies {m['host_copies']}")
+            torch.cuda.synchronize()
+            seg_total, b1_in_t1 = fr.seg_launches, fr.launches
+        finally:
+            fr.fused_reduce_seg = real_seg
+        if b1_in_t1:
+            fail(f"16 tier 1: {b1_in_t1} plain B1 launches")
+        seg_err = 0
+        for i, a in enumerate(seg_calls):
+            prog, inputs, valid, seg_mask, K, lo, W = a
+            gk = fr.fused_reduce_seg(*a)
+            wk = fr.fused_reduce_ref(prog, inputs, valid, seg_mask, K,
+                                     (lo, W))
+            torch.cuda.synchronize()
+            e = max_abs_diff(gk, wk)
+            if e:
+                fail(f"16 tier 1 call {i}: max |kernel - plain| = {e}")
+            seg_err = max(seg_err, e)
+        print(f"[16 tier1] q2.1 sliding a year, three steps, each == caches "
+              f"off exactly: {'; '.join(lines)}; {seg_total} "
+              f"segment-extended launches in all, replayed against the "
+              f"plain version: max |kernel - plain| = {seg_err} {tag}",
+              flush=True)
+
+        # (d) the 13 as one batch: the multi-leg kernel per device
+        mesh.config.force_strategy = None
+        with MultiRecorder() as rec:
+            fr.launches = fr.multi_launches = 0
+            t = time.perf_counter()
+            out = mesh.sql_batch([ssb.QUERIES[n] for n in names])
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t) * 1000
+            b1, multi = fr.launches, fr.multi_launches
+        stmts = mesh.runner.last_metrics["statements"]
+        groups, singles, want_b1, want_multi = batch_layout(stmts, names)
+        for name, f, m in zip(names, out, stmts):
+            same(f, frames[name], f"batch {name}")
+            if m.get("route") == "batch" and m.get("host_copies") != D:
+                fail(f"16 batch {name}: {m.get('host_copies')} copies for "
+                     f"its group (want {D})")
+        if not groups or multi != D * want_multi or b1 != D * want_b1:
+            fail(f"16 batch: groups {groups}, singles {singles}: multi-leg "
+                 f"launches {multi} (want {D * want_multi}), B1 {b1} (want "
+                 f"{D * want_b1})")
+        multi_err = max(check_multi(fr, a, f"16 batch call {i}")[0]
+                        for i, a in enumerate(rec.calls))
+        print(f"[16 batch] the 13 as one sql_batch: fused groups "
+              f"{json.dumps(groups)}, single legs {singles}; multi-leg "
+              f"launches {multi} ({D} per fused group), B1 {b1} ({D} per "
+              f"single leg), {D} copies per group, every answer == phase "
+              f"4's exactly; replayed: max |kernel - plain| = {multi_err}; "
+              f"first run {first:.1f} ms {tag}", flush=True)
+
+        # (e) scans, pages and searches: the row mask per device
+        def page(e, off):
+            return e.select_page("lineorder", columns=("c_city", "s_city"),
+                                 page_size=100, offset=off)
+        scans = [("scan A", lambda e: e.sql(SCAN_A), D),
+                 ("scan B", lambda e: e.sql(SCAN_B), D),
+                 ("scan C", lambda e: e.sql(SCAN_C), D),
+                 *[(f"select page {i + 1}", lambda e, o=o: page(e, o), D)
+                   for i, o in enumerate((0, 100, 200))],
+                 ("search verb", lambda e: e.sql(SEARCH_VERB), D),
+                 ("search IN c_city, s_city",
+                  lambda e: e.execute_ir(SEARCH_CITIES), D),
+                 ("search d_year, c_region",
+                  lambda e: e.execute_ir(SEARCH_NUMERIC), D)]
+        mask_calls, real_mask = [], rm.row_mask
+
+        def record_mask(*a):
+            mask_calls.append(a)
+            return real_mask(*a)
+        rm.row_mask = record_mask
+        rm.launches = 0
+        counts = {}
+        try:
+            for name, fn, want_n in scans:
+                before = rm.launches
+                g = fn(mesh)
+                n = rm.launches - before
+                m = mesh.runner.last_metrics
+                w = fn(one)
+                if isinstance(g, pd.DataFrame):
+                    same(g, w, name)
+                elif isinstance(g, tuple):
+                    if g != w:
+                        fail(f"16 {name}: the mesh's page differs")
+                elif g.rows != w.rows or g.druid != w.druid:
+                    fail(f"16 {name}: the mesh's result differs")
+                if n != want_n or not m.get("mask_kernel") \
+                        or m.get("num_shards") != D:
+                    fail(f"16 {name}: {n} row-mask launches (want {want_n}),"
+                         f" mask kernel {m.get('mask_kernel')}, shards "
+                         f"{m.get('num_shards')}")
+                counts[name] = (n, m.get("host_copies"))
+            torch.cuda.synchronize()
+            mask_total = rm.launches
+        finally:
+            rm.row_mask = real_mask
+        mask_err = 0
+        for i, a in enumerate(mask_calls):
+            gk, wk = rm.row_mask(*a), rm.row_mask_ref(*a)
+            torch.cuda.synchronize()
+            mask_err = max(mask_err, int((gk != wk).any()))
+            if mask_err:
+                fail(f"16 mask call {i}: the kernel differs from the plain "
+                     f"version")
+        print(f"[16 scan] scans, pages and searches == the D=1 engine's "
+              f"exactly (rows in logical segment order); (row-mask "
+              f"launches, copies) per statement {json.dumps(counts)}; "
+              f"{mask_total} launches in all, replayed against the plain "
+              f"version: max |kernel - plain| = {mask_err} {tag}",
+              flush=True)
+
+        # (f) degradation: a dispatch failure halves the mesh
+        def inject(stage, attempt):
+            if attempt == 0:
+                raise RuntimeError("injected device failure")
+        deg = engine(num_shards=D, dispatch_retries=1,
+                     degrade_shards_on_retry=True, fault_injector=inject)
+        g = deg.sql(ssb.QUERIES["q2.1"])
+        m = deg.runner.last_metrics
+        if m.get("degraded_shards") != D // 2 or \
+                m.get("num_shards") != D // 2 or m.get("retries") != 1:
+            fail(f"16 degradation: degraded to {m.get('degraded_shards')}, "
+                 f"ran on {m.get('num_shards')}, retries {m.get('retries')}")
+        same(g, frames["q2.1"], "degraded q2.1")
+        print(f"[16 degrade] q2.1 with a failed first dispatch: {D} -> "
+              f"{m['num_shards']} devices, == phase 4's exactly; retry "
+              f"error {m.get('retry_errors')} {tag}", flush=True)
+
+        # (g) sys.devices: one row per device, bytes summing to the ledger
+        dev = mesh.sql("SELECT * FROM sys.devices")
+        ledger = mesh.runner._ledger
+        alloc = torch.cuda.memory_allocated()
+        if len(dev) != D or int(dev.hbm_bytes.sum()) != ledger.bytes_in_use \
+                or ledger.bytes_in_use > alloc:
+            fail(f"16 sys.devices: {len(dev)} rows, hbm_bytes sum "
+                 f"{int(dev.hbm_bytes.sum())} vs ledger "
+                 f"{ledger.bytes_in_use}, memory_allocated {alloc}")
+        print(f"[16 devices] sys.devices: {len(dev)} rows, segments "
+              f"{dev.segments.tolist()}, dispatches "
+              f"{dev.dispatches.tolist()}, hbm_bytes "
+              f"{dev.hbm_bytes.tolist()} (sum == the ledger's "
+              f"{ledger.bytes_in_use} <= memory_allocated {alloc}) {tag}",
+              flush=True)
+    finally:
+        for e in engines:
+            e.close()
+        force_virtual_devices(0)
+    return row, fit
+
+
+def card_name(tag: str) -> str:
+    """The card's name and power limit out of a phase's tag."""
+    return tag.strip("()")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=6_000_000,
@@ -4062,6 +4460,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 16. the mesh ---------------------------------------------------------
+    t = time.perf_counter()
+    mesh_row, _ = mesh_phase(seg, tables,
+                             {n: frames[("auto", n)] for n in ssb.QUERIES},
+                             tag, flush_l2)
+    rows.append(mesh_row)
+    print(f"[16 mesh] phase 16 took {time.perf_counter() - t:.1f} s",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     rows += [sf10_row, sf10_batch_row]
 
     # the SF1 engine's columns leave the card before phase 9
@@ -4080,7 +4489,7 @@ def main():
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"kernels": [r for r in rows if r["at"] in (
         "q2.1", "q2.1 SF10", "scan A", "batch SF1", "batch SF10",
-        "tier1 q2.1", "q2.1 ingest", "ingest tier1 q2.1")]}))
+        "tier1 q2.1", "q2.1 ingest", "ingest tier1 q2.1", "q2.1 mesh")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

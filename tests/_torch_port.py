@@ -34,13 +34,12 @@ def carry_into(engine, jax_engine, name, star_schema=None):
     return seg
 
 
-def sql_literals(module, starts=("SELECT",), skip=("multichip", "exchange",
-                                                "skew")) -> list:
+def sql_literals(module, starts=("SELECT",), skip=()) -> list:
     """(test name, string) of every string literal that starts with one
     of `starts` inside the test functions of `module`, in source order —
     the SQL a JAX-package test file runs, read from that file itself
-    rather than copied. Tests whose names hold a `skip` word (multi-chip
-    cases) are left out."""
+    rather than copied. Tests whose names hold a `skip` word are left
+    out."""
     import ast
     import inspect
 

@@ -186,8 +186,11 @@ def _same_answer(jeng, peng, sql):
                         label=sql)
 
 
+# the SQL over the module's table `t` (test_sparse_groupby._df); the
+# capacity test's `t` is another table (a key per row)
 SPARSE_SQL = [jax_sparse_tests.SQL] + [
-    s for _, s in sql_of(jax_sparse_tests) if " FROM t " in s]
+    s for name, s in sql_of(jax_sparse_tests) if " FROM t " in s
+    and name != "test_exchange_scales_past_per_chip_budget"]
 
 
 @pytest.mark.parametrize("sql", SPARSE_SQL)

@@ -91,6 +91,51 @@ def test_ledger_sequences_match_jax(seed, budget):
         assert mine.evictions > 0
 
 
+def _distinct(ops):
+    """`ops` less the adds and pins of a key already held: both ledgers
+    keep a re-added key's earlier bytes in their totals, which a
+    re-attribution over a new device count (rightly) drops."""
+    held, out = set(), []
+    for op in ops:
+        if op[0] in ("add", "pin"):
+            if op[1] in held:
+                continue
+            held.add(op[1])
+        elif op[0] in ("remove", "unpin"):
+            held.discard(op[1])
+        elif op[0] == "remove_table":
+            held = {k for k in held if k[0] != op[1]}
+        out.append(op)
+    return out
+
+
+@pytest.mark.parametrize("late", [False, True])
+@pytest.mark.parametrize("chips", [3, 8])
+def test_per_chip_split_matches_jax(chips, late):
+    """The per-(chip, owner) split over a mesh equals the JAX ledger's
+    (which takes the device count at construction), whether the port's
+    learns the count before any entry (with evictions under a budget)
+    or after half of them (set_num_chips re-attributes the live
+    entries; its watermarks then restart from the current bytes, so
+    they are compared only when the count came first)."""
+    budget = None if late else 1500
+    ops = _distinct(_ops(1)) if late else _ops(1)
+    mine, want = HbmLedger(budget), JaxLedger(budget, num_chips=chips)
+    if not late:
+        mine.set_num_chips(chips)
+    _replay(mine, ops[:len(ops) // 2])
+    if late:
+        assert mine.breakdown() and mine.num_chips == 1
+        mine.set_num_chips(chips)
+    _replay(mine, ops[len(ops) // 2:])
+    _replay(want, ops)
+    assert mine.breakdown() == want.breakdown()
+    if late:
+        assert sum(mine.breakdown().values()) == mine.bytes_in_use
+    else:
+        assert mine.watermarks() == want.watermarks()
+
+
 def test_single_over_budget_entry_still_admitted():
     for ledger in (HbmLedger(100), JaxLedger(100)):
         ledger.add(("t", "col", "a"), 60, lambda: None)

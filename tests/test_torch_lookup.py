@@ -104,8 +104,29 @@ def test_drop_table_as_in_jax():
 def test_engine_surface_left_to_later_items():
     """The port's Engine lacks no method of the JAX package's Engine:
     ROADMAP queue A item 14 ported the last two (the sys tables'
-    `_execute_sys_stmt` and the sentinel's `_wal_lag_probe`), and the
-    multi-GPU port (item 13) adds no Engine method."""
+    `_execute_sys_stmt` and the sentinel's `_wal_lag_probe`); the mesh
+    (item 13) adds no Engine method."""
     def names(cls):
         return {n for n in dir(cls) if not n.startswith("__")}
     assert names(JaxEngine) - names(Engine) == set()
+
+
+def test_config_surface_left_out_by_design():
+    """The JAX package's EngineConfig fields the port lacks are exactly
+    the ones left out by design (executor/config.py's docstring): the
+    numpy-platform batch knobs, the Pallas knobs, the JAX backend
+    switches, a knob nothing reads and the free-form dict. The mesh's
+    knobs (num_shards, degrade_shards_on_retry, sparse_merge,
+    force_strategy, the cost model's) are all ported."""
+    import dataclasses
+    from tpu_olap_torch.executor.config import EngineConfig
+
+    def fields(cls):
+        return {f.name for f in dataclasses.fields(cls)}
+    missing = fields(JaxConfig) - fields(EngineConfig)
+    assert missing == {
+        "batch_chunk_segments", "batch_cpu_threads", "use_pallas",
+        "platform", "enable_x64", "max_segments_per_dispatch", "extra",
+    } | {n for n in fields(JaxConfig) if n.startswith("pallas_")}
+    assert fields(EngineConfig) - fields(JaxConfig) == \
+        {"device", "use_fused_reduce"}

@@ -11,8 +11,9 @@ faults. Each scenario runs the same way in both packages where the JAX
 package can run it on the CPU (numpy platform, use_pallas="never"), and
 the answers are compared with assert_frame_parity. Deadlines and the
 pipelined mode are held in test_torch_deadline.py and
-test_torch_pipeline.py; shard degradation comes with the multi-GPU
-slice. The card-only cases skip without CUDA.
+test_torch_pipeline.py. Shard degradation runs on the port's mesh of 8
+CPU devices (test_fault_recovery.py::test_shard_degradation) against the
+JAX engine on one device. The card-only cases skip without CUDA.
 """
 
 import threading
@@ -285,6 +286,26 @@ def test_retry_exhaustion(mk, want, fallback):
     assert len(m["retry_errors"]) == 2
     failed = [h for h in jax.runner.history if h.get("failed")]
     assert failed[-1]["retry_errors"] == m["retry_errors"]
+
+
+@pytest.mark.parametrize("failures, retries, shards",
+                         [(1, 1, 4), (2, 2, 2)])
+def test_shard_degradation(mk, want, failures, retries, shards):
+    """The device-loss analog: the 8-device mesh's dispatch fails
+    `failures` times and every retry halves the mesh (8 -> 4 -> 2);
+    the statement answers on the smaller mesh, as the JAX package's."""
+    eng = mk(num_shards=8, dispatch_retries=retries,
+             degrade_shards_on_retry=True,
+             fault_injector=FlakyInjector(failures))
+    assert eng.runner.mesh.size == 8
+    got = eng.sql(SQL)
+    m = eng.runner.last_metrics
+    assert m["retries"] == failures and m["degraded_shards"] == shards
+    assert m["num_shards"] == shards and m["path"] != "fallback"
+    assert eng.runner.mesh.size == shards
+    assert eng.runner._ledger.num_chips == shards
+    assert len(eng.sql("SELECT * FROM sys.devices")) == shards
+    assert_frame_parity(got, want[SQL], ordered=True)
 
 
 def test_injector_quiescent_by_default(mk):

@@ -433,3 +433,40 @@ def test_segment_kernel_source_and_variants(monkeypatch, tmp_path):
         out = subprocess.run([cxx, "-std=c++17", "-fsyntax-only", str(path)],
                              capture_output=True, text=True)
         assert out.returncode == 0, out.stderr[:3000]
+
+
+def test_mesh_cache_shards_equal_one_device_entries(df):
+    """Tier 1 over a mesh of 8 CPU devices: one segment-extended pass
+    per device, and every cached per-segment partial (the cache shard of
+    its segment's device, segment i on device i mod 8) equal, exactly,
+    to the one-device engine's entry for that segment; the repeat is
+    served from the shards, as the JAX engine serves it."""
+    jax = _jax(df, result_cache_enabled=False)
+    one = _port(jax, result_cache_enabled=False)
+    mesh = cpu_engine(use_fused_reduce="force", num_shards=8,
+                      **{**CACHES, "result_cache_enabled": False})
+    carry_into(mesh, jax, "t")
+    sql = _win_sql("2023-01-01", "2023-02-01")
+    for step in ("cold", "warm"):
+        got = mesh.sql(sql)
+        m = mesh.runner.last_metrics
+        if step == "cold":  # one copy per device
+            assert m["num_shards"] == 8 and m["host_copies"] == 8
+            assert m["segments_window_per_chip"] == 4
+        assert_frame_parity(got, jax.sql(sql), ordered=True, label=step)
+        _same_counts(m, dict(jax.history[-1]))
+        pd.testing.assert_frame_equal(got, one.sql(sql))
+    assert m["segments_computed"] == 0 and m["cache_tier"] == "segment"
+    # keyed by (template, segment id): the two engines' segments are
+    # separate carries of the same blocks, with uids of their own
+    a = {(k[0], k[2]): e for k, e in one.runner.result_cache._seg.items()}
+    b = {(k[0], k[2]): e
+         for k, e in mesh.runner.result_cache._seg.items()}
+    assert set(a) == set(b) and len(b) >= 28
+    for key, entry in b.items():
+        for name, t in entry.partials.items():
+            assert torch.equal(t, a[key].partials[name]), (key, name)
+    per_device = mesh.runner.result_cache.shard_entries(8)
+    assert sum(per_device.values()) == len(b) and len(per_device) == 8
+    for e in (one, mesh):
+        e.close()

@@ -273,3 +273,25 @@ def test_stop_drains_an_inflight_request():
 def test_jsonable_turns_pandas_nulls_into_json_null():
     assert _jsonable({"a": [float("nan"), pd.NaT, pd.NA, 1, "x"]}) == \
         {"a": [None, None, None, 1, "x"]}
+
+
+def test_debug_devices_lists_every_mesh_device():
+    """GET /debug/devices on a mesh of 8 CPU devices: the configured
+    num_shards and one row per device, as the JAX server's over its
+    mesh; /status keeps the JAX keys."""
+    from tpu_olap_torch.api.server import QueryServer
+    eng = cpu_engine(num_shards=8, cube_auto_refresh=False)
+    eng.register_table("t", _df(), time_column="ts", block_rows=256)
+    srv = QueryServer(eng, host="127.0.0.1", port=0).start()
+    try:
+        _call(srv, "POST", "/sql", {"query": SQL})
+        status, _, dev = _call(srv, "GET", "/debug/devices")
+        assert status == 200 and dev["num_shards"] == 8
+        assert [d["index"] for d in dev["devices"]] == list(range(8))
+        assert all(d["chips"] == 8 and d["dispatches"] > 0
+                   for d in dev["devices"])
+        n_seg = len(eng.catalog.get("t").segments.segments)
+        assert sum(d["segments"] for d in dev["devices"]) == n_seg
+    finally:
+        srv.stop()
+        eng.close()

@@ -839,10 +839,24 @@ class Engine:
 
     def explain(self, query: str) -> dict:
         """EXPLAIN DRUID REWRITE analog: the chosen QuerySpec (or the
-        fallback reason) without executing (SURVEY.md §4.5). The JAX
-        package adds the cost model's dispatch decision ("cost"), which
-        waits for planner/cost.py (not ported yet)."""
-        return self.planner.plan(query).explain()
+        fallback reason) without executing (SURVEY.md §4.5), plus the
+        cost model's merge decision for an aggregate ("cost",
+        planner.cost, at the configured num_shards; the reference logs
+        its DruidQueryCostModel choice the same way, SURVEY.md §6)."""
+        plan = self.planner.plan(query)
+        out = plan.explain()
+        if plan.rewritten and plan.entry.is_accelerated:
+            from tpu_olap_torch.executor.lowering import lower
+            from tpu_olap_torch.planner import cost as cost_mod
+            try:
+                phys = lower(plan.query, plan.entry.segments, self.config)
+                if phys.kind == "agg":  # a scan has no merge to choose
+                    out["cost"] = cost_mod.decide(
+                        phys, self.config,
+                        self.config.num_shards or 1).to_json()
+            except _UNSUPPORTED as e:
+                out["cost"] = {"error": str(e)}
+        return out
 
     # -------------------------------------------------------- passthrough
 

@@ -52,9 +52,9 @@ equivalent is a JSON-over-HTTP surface (stdlib only, no new deps):
                      per cube dims/grain/rows, base-vs-cube generation,
                      last refresh, build cost, and rewrite serve counts
                      — the SQL spelling is SELECT * FROM sys.cubes
-  GET  /debug/devices  serving state of the one device (the multi-GPU
-                     placement is ROADMAP queue A item 13): segments,
-                     resident bytes, dispatches, tier-1 cache entries,
+  GET  /debug/devices  num_shards and the serving state of each device
+                     (one row per mesh device): segments, resident
+                     bytes, dispatches, tier-1 cache entries,
                      per-owner-class device bytes — the SQL spelling is
                      SELECT * FROM sys.devices
   GET  /debug/workload  the query-template profiler (obs.workload):
@@ -414,11 +414,13 @@ class QueryServer:
                     "auto_refresh": bool(eng.config.cube_auto_refresh),
                     "cubes": eng.cubes.snapshot()}
         if path == "/debug/devices" or path.startswith("/debug/devices?"):
-            # serving state of the one device: segments, resident
-            # bytes, dispatches, tier-1 cache entries, rebase stats —
-            # the SQL spelling is SELECT * FROM sys.devices
-            return {"num_shards": 1,
-                    "devices": self.engine.runner.device_snapshot()}
+            # the configured num_shards and each device's serving
+            # state: segments, resident bytes, dispatches, tier-1 cache
+            # entries, rebase stats — the SQL spelling is SELECT * FROM
+            # sys.devices
+            eng = self.engine
+            return {"num_shards": int(eng.config.num_shards or 1),
+                    "devices": eng.runner.device_snapshot()}
         if path == "/debug/ingest" or path.startswith("/debug/ingest?"):
             # real-time ingest state (segments/delta.py): per-table
             # delta rows/segments, sealed

@@ -33,9 +33,9 @@ Datasources:
   sys.devices          per-device serving state: segments, resident
                        bytes, dispatches, tier-1 cache entries,
                        per-owner-class device bytes with
-                       high-watermark + headroom. One row, for the
-                       runner's torch device (the multi-GPU placement
-                       is ROADMAP queue A item 13)
+                       high-watermark + headroom. One row per mesh
+                       device (one, the runner's torch device, without
+                       a mesh)
   sys.metrics_history  the telemetry sampler's bounded per-series
                        rings (obs.timeseries) — the engine answers
                        SQL over its own recent metric history
@@ -244,14 +244,17 @@ _DEVICE_COLS = (
 
 
 def _devices_frame(engine) -> pd.DataFrame:
-    """sys.devices: one row, for the runner's torch device (`device`
-    and `platform` name it, e.g. "cuda:0" / "cuda") — its segments,
-    resident bytes, dispatches, and tier-1 cache entry counts.
+    """sys.devices: one row per mesh device, or one for the runner's
+    torch device without a mesh (`device` and `platform` name it, e.g.
+    "cuda:0" / "cuda") — the logical segments it owns under the
+    interleaved placement, its resident bytes, dispatches, and tier-1
+    cache entry counts.
     `rebased_*` columns surface the incremental rebase path (only
     delta-touched segments' rows re-upload on an ingest snapshot swap).
     The hbm_* columns are the ledger's exact per-owner-class
     attribution: table_column + cube_table + inflight bytes sum to
-    hbm_bytes == HbmLedger.bytes_in_use; cache_pin_bytes is the tier-1
+    hbm_bytes, summed over the rows, == HbmLedger.bytes_in_use;
+    cache_pin_bytes is the tier-1
     ResultCache's byte census; high-watermark and headroom are against
     hbm_budget_bytes."""
     return pd.DataFrame(engine.runner.device_snapshot(),

@@ -26,7 +26,7 @@ duplicates without lowering or a scan, and a fused leg fills the cache.
 Entry points: run_batch(runner, queries, table) (boxed: per-leg
 failures come back as exceptions in the leg's place), the Coalescer
 (the micro-batching window behind EngineConfig.batch_window_ms), and
-fusable(plan), the compatibility rule.
+fusable(plan, mesh), the compatibility rule.
 
 Metrics on every leg of a fused group: `batch_id` (count the shared
 pass once per id), `batch_size` (logical queries served), `batch_legs`,
@@ -52,8 +52,13 @@ leg's finalize and assembly) without it.
 Observability, as in the JAX package: the fused pass is one
 `shared-scan` span with a `leg` span per statement, single legs run
 under their statement's query id (`use_query_id`), and every leg and
-every deduplicated copy leaves its own history record. Mesh legs and the
-broker merge come with ROADMAP queue A item 13.
+every deduplicated copy leaves its own history record.
+
+Under a mesh (executor.sharding) a fused group runs on every device over
+that device's stacks and the per-device union window
+(sharding.local_window): the multi-leg kernel once per device, the other
+legs' generic reduce per device, one copy per device, and the host
+broker merges each leg's D partial tables (sharding.broker_merge).
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ import json
 import threading
 import time
 
+from tpu_olap_torch.executor import sharding as sh
 from tpu_olap_torch.executor.runner import QueryResult, _next_pow2
 from tpu_olap_torch.ir.query import (GroupByQuerySpec, TimeseriesQuerySpec,
                                      TopNQuerySpec)
@@ -74,15 +80,20 @@ from tpu_olap_torch.resilience.faults import maybe_inject
 AGG_QUERY_TYPES = (TimeseriesQuerySpec, GroupByQuerySpec, TopNQuerySpec)
 
 
-def fusable(plan) -> str | None:
+def fusable(plan, mesh=None) -> str | None:
     """None when the plan can ride a fused shared-scan group, else why
-    it runs alone (through the single-query path)."""
+    it runs alone (through the single-query path). Mesh legs fuse too:
+    every device runs the group over its own stacks and the broker
+    merges each leg; as in the JAX package, whose mesh legs extend their
+    key by the chip, a leg whose D x K reaches 2^31 runs alone."""
     if plan.kind != "agg":
         return "only aggregation plans fuse"
     if plan.sparse:
         return "sparse group-by legs run alone"
     if plan.front_half is None:
         return "plan has no front half"
+    if mesh is not None and mesh.size * plan.total_groups >= (1 << 31):
+        return "chip-extended group key overflows int32"
     return None
 
 
@@ -113,7 +124,8 @@ def run_batch(runner, queries, table, query_ids=None) -> list:
             continue
         try:
             plan = runner._lower_cached(q, table)
-            reason = fusable(plan) if isinstance(q, AGG_QUERY_TYPES) \
+            reason = fusable(plan, runner.mesh) \
+                if isinstance(q, AGG_QUERY_TYPES) \
                 else "non-agg query type"
         except Exception as e:  # noqa: BLE001 — boxed per leg
             for i in idxs:
@@ -335,30 +347,44 @@ def _run_fused(runner, table, group, query_ids):
 def _shared_pass(runner, table, plans, metrics_list):
     """The device half of a fused group, in two stages: stage 1 (under
     the enqueue lock) prepares every leg over the union window, launches
-    and queues the one copy of every leg's partials; stage 2 waits for
-    it. Returns (per-leg partials, the copy's metrics, its wall in ms,
-    the legs in the multi-leg kernel)."""
+    and queues the one copy of every leg's partials (under a mesh: one
+    per device); stage 2 waits for it (them). Returns (per-leg partials,
+    the copy's metrics, its wall in ms, the legs in the multi-leg
+    kernel); under a mesh each leg's partials are the broker's merge of
+    its D tables."""
     shared = {"host_copies": 0}
     fired = {}
 
     def launch():
-        outs = _launch_legs(runner, table, plans, metrics_list, fired)
-        return {f"{i}\0{n}": t for i, out in enumerate(outs)
-                for n, t in out.items()}
-    flat = runner._staged_fetch(launch, shared)
-    partials_list = [{} for _ in plans]
-    for name, a in flat.items():
-        i, n = name.split("\0", 1)
-        partials_list[int(i)][n] = a
+        per_device = _launch_legs(runner, table, plans, metrics_list, fired)
+        return [{f"{i}\0{n}": t for i, out in enumerate(outs)
+                 for n, t in out.items()} for outs in per_device]
+    flats = runner._staged_fetch_all(launch, shared)
+    per_device = []
+    for flat in flats:
+        partials_list = [{} for _ in plans]
+        for name, a in flat.items():
+            i, n = name.split("\0", 1)
+            partials_list[int(i)][n] = a
+        per_device.append(partials_list)
+    if len(per_device) == 1:
+        partials_list = per_device[0]
+    else:
+        with _span("broker-merge", num_shards=len(per_device)):
+            partials_list = [
+                sh.broker_merge([dev[i] for dev in per_device],
+                                plan.agg_plans)
+                for i, plan in enumerate(plans)]
     shared_ms = (time.perf_counter() - fired["t"]) * 1000
     return partials_list, shared, shared_ms, fired["kernel_legs"]
 
 
 def _launch_legs(runner, table, plans, metrics_list, fired) -> list:
-    """Stage 1 of the shared pass: every leg's env over the union
-    window, the multi-leg kernel for the legs the fused reduce takes and
-    group_reduce_batch for the rest. Returns each leg's partials as
-    device tensors; `fired` gets the launch time and the kernel legs."""
+    """Stage 1 of the shared pass: every leg's env, then the legs over
+    the union window on the device, or on every mesh device over its own
+    shards (`_legs_on_device`). Returns, per device, each leg's partials
+    as device tensors; `fired` gets the launch time and the kernel
+    legs."""
     envs, seg_masks, consts = [], [], []
     valid = None
     # the union of the legs' working sets stays pinned in the ledger
@@ -374,7 +400,37 @@ def _launch_legs(runner, table, plans, metrics_list, fired) -> list:
         envs.append(env)
         seg_masks.append(seg_mask)
         consts.append(c)
-    win = _union_window(plans, len(seg_masks[0]))
+    mesh = runner.mesh
+    D = mesh.size if mesh is not None else 1
+    win = _union_window(plans, len(seg_masks[0][0]) if mesh is not None
+                        else len(seg_masks[0]), mesh)
+    if win is not None:
+        for m in metrics_list:
+            m["segments_window"] = win[1] * D
+            if mesh is not None:
+                m["segments_window_per_chip"] = win[1]
+    fired["t"] = time.perf_counter()
+    fired["kernel_legs"] = sum(p.fused_reason is None for p in plans)
+    if mesh is None:
+        return [_legs_on_device(table, plans, envs, valid, seg_masks,
+                                consts, win)]
+    outs = []
+    for c, dev in enumerate(mesh.devices):
+        with sh.on_device(dev):
+            outs.append(_legs_on_device(
+                table, plans,
+                [{kind: {n: a[c] for n, a in env[kind].items()}
+                  for kind in ("cols", "nulls")} for env in envs],
+                valid[c], [s[c] for s in seg_masks],
+                [cs[c] for cs in consts], win))
+    runner._note_chip_dispatch(range(D))
+    return outs
+
+
+def _legs_on_device(table, plans, envs, valid, seg_masks, consts, win):
+    """Every leg on one device over the window `win` of its stacks: the
+    multi-leg kernel for the legs the fused reduce takes and
+    group_reduce_batch for the rest. Returns each leg's partials."""
     if win is not None:
         lo, W = win
         sl = slice(lo, lo + W)
@@ -386,12 +442,7 @@ def _launch_legs(runner, table, plans, metrics_list, fired) -> list:
                  for kind in ("cols", "nulls")} for spec in layouts]
         valid = valid[sl]
         seg_masks = [s[sl] for s in seg_masks]
-        for m in metrics_list:
-            m["segments_window"] = W
-
-    fired["t"] = time.perf_counter()
     kernel_legs = [i for i, p in enumerate(plans) if p.fused_reason is None]
-    fired["kernel_legs"] = len(kernel_legs)
     other_legs = [i for i, p in enumerate(plans) if p.fused_reason is not None]
     outs: list = [None] * len(plans)
     if kernel_legs:
@@ -418,14 +469,18 @@ def _launch_legs(runner, table, plans, metrics_list, fired) -> list:
     return outs
 
 
-def _union_window(plans, n_segments):
+def _union_window(plans, n_segments, mesh=None):
     """(lo, W) covering every leg's pruned segments, or None: the batch
     counterpart of QueryRunner._segment_window. A leg whose own pruned
     set is smaller still reads only the union window; its segment mask
-    zeroes the rest."""
+    zeroes the rest. Under a mesh, `n_segments` is each device's count
+    and the window is the per-device local one (logical [lo, hi) is
+    local [lo // D, ceil(hi / D)) on every device)."""
     ids = sorted({i for p in plans if not p.empty for i in p.pruned_ids})
     if not ids:
         return None
+    if mesh is not None:
+        return sh.local_window(ids, mesh.size, n_segments)
     lo, hi = ids[0], ids[-1] + 1
     W = _next_pow2(hi - lo)
     if 4 * W >= 3 * n_segments:

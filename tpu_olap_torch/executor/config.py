@@ -1,11 +1,16 @@
 """Engine configuration — the knobs this package reads.
 
 A trimmed counterpart of the JAX package's EngineConfig: the host-side
-lowering budgets, planner switches and fallback-interpreter bounds keep
-their names and defaults; the device knobs are `device` and
-`use_fused_reduce`. The JAX package's numpy-platform batch knobs
-(`batch_chunk_segments`, `batch_cpu_threads`) have no counterpart: the
-port's CPU path is the plain torch version of its kernels.
+lowering budgets, planner switches, fallback-interpreter bounds and
+the mesh's knobs keep their names and defaults; the device knobs are
+`device` and `use_fused_reduce`. Left out by design: the JAX package's
+numpy-platform batch knobs (`batch_chunk_segments`,
+`batch_cpu_threads`: the port's CPU path is the plain torch version of
+its kernels), its Pallas knobs (`use_pallas`, `pallas_*`: the port's
+kernels are its own), its backend switches (`platform`, `enable_x64`:
+`device` picks the device, and torch computes in int64 without a
+switch), `max_segments_per_dispatch` (read by nothing in the JAX package
+either) and the free-form `extra` dict.
 """
 
 from __future__ import annotations
@@ -47,6 +52,13 @@ class EngineConfig:
     # theta sketch width on the sparse path: [cap, k] tables stay modest
     # (256 -> about 6% relative standard error)
     sparse_theta_k_cap: int = 256
+    # the mesh's sparse merge: every device compacts its own groups, then
+    # "exchange" hash-partitions the compact entries to owner devices
+    # (hash of the key mod D), copies them device to device and merges
+    # per owner, so the present groups may reach D x sparse_group_budget
+    # and skew only loads one owner; "gather" merges every device's table
+    # at the host broker within one device's budget
+    sparse_merge: str = "exchange"
     # most [groups x radix] elements of dense per-group sketch state
     # (theta tables, HLL register files); past it a GroupBy takes the
     # sparse path with the clamped sketch width, other shapes decline
@@ -56,6 +68,31 @@ class EngineConfig:
     # compacted buffer of a dense aggregate query (executor.packing);
     # past it the query re-runs unpacked (same answer, larger copy)
     result_group_cap: int = 1 << 16
+
+    # the mesh (executor.sharding): the segment axis split over this many
+    # devices, segment i on device i mod D (interleaved placement, so a
+    # time range load-balances and the per-device window prunes each
+    # device's share). Each aggregate launches once per device; None or 1
+    # = one device. D may exceed the cards only after
+    # utils.platform.force_virtual_devices (tests, the smoke); on the CPU
+    # the mesh is D entries of the CPU device.
+    num_shards: int | None = None
+
+    # the cost model (planner.cost) picks a mesh aggregate's merge:
+    # "historicals" copies every device's partial table to the host and
+    # the broker folds them; "broker" copies them to the mesh's first
+    # device, folds there and copies one table back. The four constants
+    # default to the fitted entry of planner/cost_calibration.json for
+    # the engine's device type; set them to pin. shard_merge_factor
+    # scales the modeled merge bytes.
+    cost_model_enabled: bool = True
+    shard_merge_factor: float = 1.0
+    cost_scan_ns_per_row_col: float | None = None
+    cost_merge_ns_per_byte: float | None = None
+    cost_collective_lat_us: float | None = None
+    cost_gspmd_overhead: float | None = None
+    # pin the merge ("historicals" | "broker"); None = the cost model
+    force_strategy: str | None = None
 
     # Timeseries: omit buckets with no rows (Druid skipEmptyBuckets)
     skip_empty_buckets: bool = False
@@ -238,8 +275,11 @@ class EngineConfig:
     # statements sit between the two stages at once (graph admission);
     # 0 = serialized (dispatch_lock held across the whole statement).
     pipeline_depth: int = 4
-    # degrade_shards_on_retry comes with the multi-GPU port (ROADMAP
-    # queue A item 13); until then passing it raises TypeError.
+    # with a mesh, a failure that outlasts the retries halves the device
+    # count (the mesh is rebuilt over the first half, every table's
+    # stacks re-placed): the in-process analog of re-sharding the
+    # segment manifest after a device loss
+    degrade_shards_on_retry: bool = False
 
     # observability (obs.trace, obs.metrics, obs.events, obs.slo), with
     # the JAX package's defaults: per-statement span trees (a ring of

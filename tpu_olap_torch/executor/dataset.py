@@ -7,9 +7,15 @@ reused across queries. Interval pruning is applied as a per-segment mask
 
 Every table's stacks are accounted in one `HbmLedger` that the runner
 owns: past `EngineConfig.hbm_budget_bytes` the least-recently-used
-unpinned stacks evict (an evicted stack rebuilds on its next use). One
-device and no mesh: the JAX package's multi-chip placement comes with
-ROADMAP queue A item 13.
+unpinned stacks evict (an evicted stack rebuilds on its next use).
+
+Under a mesh (executor.sharding) the segment axis pads to a multiple of
+D with fully invalid segments and every stack is `Sharded`: shard c, on
+mesh device c, holds the segments i with i mod D == c at local index
+i // D (the interleaved placement; `to_place`/`to_logical` map logical
+ids to placed positions and back). The segment mask is sharded the same
+way, and the ledger splits each stack's bytes evenly over the D devices,
+which is exact: every shard has the same shape.
 
 Snapshot swaps (real-time appends, incremental compaction) hand the
 superseded dataset in as `prev`, and each resident stack REBASES on the
@@ -19,6 +25,11 @@ snapshot shares are copied device to device from the old stack
 upload (the tail block an append rewrote, and any new blocks). A stack
 whose dtype changed (a narrowed LONG column widened, a code column
 promoted) re-stacks whole. The rebase runs on CPU tensors the same way.
+Under a mesh it follows the placement: a segment keeps its device and
+local index (i mod D, i // D) as the table grows, so each shard rebases
+on its own device; an append that adds a segment can add a local row to
+every shard (new padding) and moves placed positions, never a kept
+segment's rows.
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from tpu_olap_torch.executor.sharding import (Mesh, Sharded, pad_segments,
+                                             placement, shard_host)
 from tpu_olap_torch.segments.ingest import _int_dtype_for
 from tpu_olap_torch.segments.segment import (ColumnType, TableSegments,
                                              TIME_COLUMN)
@@ -91,11 +104,11 @@ class HbmLedger:
     storage table, `__cube_<name>`) and `inflight` (pinned outputs),
     which sum exactly to `bytes_in_use`, plus what external reporters
     say (`register_external`: the tier-1 cache's `cache_pins`).
-    Everything sits on chip 0, the one CUDA device: `num_chips` is 1,
-    and the split over D devices (`set_num_chips`) comes with the
-    multi-GPU port (ROADMAP queue A item 13)."""
-
-    num_chips = 1
+    Under a mesh of D devices (`set_num_chips`, called when the runner
+    builds the mesh) every entry splits evenly over the devices, the
+    remainder to the lowest ones, so that the per-device sums equal
+    bytes_in_use exactly: every ledgered stack is sharded 1/D per device
+    (the dataset pads the segment axis to a multiple of D)."""
 
     def __init__(self, budget_bytes: int | None):
         self.budget = budget_bytes
@@ -106,7 +119,10 @@ class HbmLedger:
         self.bytes_in_use = 0
         self.evictions = 0
         self.high_watermark = 0
-        self._by_owner: dict[str, int] = {}
+        self.num_chips = 1
+        self._chip_bytes = [0] * self.num_chips
+        self._chip_hwm = [0] * self.num_chips
+        self._by_chip_owner: dict[tuple, int] = {}
         self._external: dict = {}  # owner -> fn(num_chips) -> {chip: b}
 
     @staticmethod
@@ -121,18 +137,48 @@ class HbmLedger:
             return "cube_tables"
         return "table_columns"
 
-    def _account(self, key, nbytes: int, sign: int):
-        """bytes_in_use, the owner classes and the high-watermark; the
-        caller holds _mu."""
-        self.bytes_in_use += sign * nbytes
+    def _shares(self, nbytes: int) -> list:
+        q, r = divmod(int(nbytes), self.num_chips)
+        return [q + (1 if c < r else 0) for c in range(self.num_chips)]
+
+    def _account(self, key, nbytes: int, sign: int, total: bool = True):
+        """bytes_in_use (unless `total` is False), the per-(chip, owner)
+        split and the high-watermarks; the caller holds _mu."""
+        if total:
+            self.bytes_in_use += sign * nbytes
         owner = self._owner_for(key)
-        nb = self._by_owner.get(owner, 0) + sign * nbytes
-        if nb:
-            self._by_owner[owner] = nb
-        else:
-            self._by_owner.pop(owner, None)
+        for c, share in enumerate(self._shares(nbytes)):
+            self._chip_bytes[c] += sign * share
+            k = (c, owner)
+            nb = self._by_chip_owner.get(k, 0) + sign * share
+            if nb:
+                self._by_chip_owner[k] = nb
+            else:
+                self._by_chip_owner.pop(k, None)
+            if self._chip_bytes[c] > self._chip_hwm[c]:
+                self._chip_hwm[c] = self._chip_bytes[c]
         if self.bytes_in_use > self.high_watermark:
             self.high_watermark = self.bytes_in_use
+
+    def set_num_chips(self, num_chips: int):
+        """Adopt the mesh's device count (the runner learns it when it
+        builds the mesh, after the ledger exists) and re-attribute every
+        live entry under the new split. The per-device watermarks reset
+        to the current bytes: a watermark against another device count
+        does not compare."""
+        d = max(1, int(num_chips))
+        with self._mu:
+            if d == self.num_chips:
+                return
+            self.num_chips = d
+            self._chip_bytes = [0] * d
+            self._chip_hwm = [0] * d
+            self._by_chip_owner = {}
+            for k, (nbytes, _fn) in self._entries.items():
+                self._account(k, nbytes, +1, total=False)
+            for k, nbytes in self._inflight.items():
+                self._account(k, nbytes, +1, total=False)
+            self._chip_hwm = list(self._chip_bytes)
 
     def register_external(self, owner: str, fn):
         """Register a live byte reporter folded into breakdown() under
@@ -147,11 +193,12 @@ class HbmLedger:
         (table_columns, cube_tables, inflight), which sum exactly to
         bytes_in_use, plus the external reporters (cache_pins)."""
         with self._mu:
-            out = {(0, o): b for o, b in self._by_owner.items()}
+            out = dict(self._by_chip_owner)
             external = dict(self._external)
+            d = self.num_chips
         for owner, fn in external.items():
             try:
-                per_chip = fn(self.num_chips) or {}
+                per_chip = fn(d) or {}
             except Exception:  # noqa: BLE001 — accounting, not serving
                 continue
             for c, nbytes in per_chip.items():
@@ -174,7 +221,7 @@ class HbmLedger:
         """Ledger-managed high-watermarks, total and per chip."""
         with self._mu:
             return {"total": self.high_watermark,
-                    "per_chip": [self.high_watermark]}
+                    "per_chip": list(self._chip_hwm)}
 
     @property
     def inflight_bytes(self) -> int:
@@ -228,8 +275,9 @@ class HbmLedger:
 
 
 class DeviceDataset:
-    """Lazy per-column stacks for one table on one device, accounted in
-    the runner's HbmLedger (None: unaccounted).
+    """Lazy per-column stacks for one table on one device, or Sharded
+    over a mesh, accounted in the runner's HbmLedger (None:
+    unaccounted).
 
     `prev`, the superseded snapshot's dataset, seeds a rebase: its
     resident column, null and validity stacks are kept as rebase
@@ -247,21 +295,28 @@ class DeviceDataset:
     device (stacks, rebase uploads, segment masks)."""
 
     def __init__(self, table: TableSegments, device: torch.device,
-                 ledger: HbmLedger | None = None, prev=None):
+                 ledger: HbmLedger | None = None, prev=None,
+                 mesh: Mesh | None = None):
         self.table = table
         self.device = torch.device(device)
         self.ledger = ledger
+        self.mesh = mesh
         self._cols: dict[str, torch.Tensor] = {}
         self._nulls: dict[str, torch.Tensor | None] = {}
         self._derived: dict[str, torch.Tensor] = {}
         self._valid = None
-        self.shape = (len(table.segments), table.block_rows)
+        n_seg = len(table.segments)
+        self.to_place = self.to_logical = None
+        if mesh is not None:
+            n_seg = pad_segments(max(n_seg, 1), mesh.size)
+            self.to_place, self.to_logical = placement(n_seg, mesh.size)
+        self.shape = (n_seg, table.block_rows)
         self._rebase = None
         self.rebased_cols = 0
         self.rebase_rows_uploaded = 0
         self.h2d_bytes = 0      # host-to-device bytes this dataset put
         if (prev is not None and prev.table is not table
-                and prev.device == self.device
+                and prev.device == self.device and prev.mesh == mesh
                 and prev.table.block_rows == table.block_rows):
             old_segs = prev.table.segments
             # uid equality, not object identity: incremental compaction
@@ -276,35 +331,63 @@ class DeviceDataset:
                                 "nulls": dict(prev._nulls),
                                 "valid": prev._valid}
 
-    def _rebase_stack(self, old: torch.Tensor | None, per_segment,
-                      dtype: torch.dtype):
+    @property
+    def per_chip(self) -> int:
+        """Segments per mesh device (all of them without a mesh)."""
+        return self.shape[0] // (self.mesh.size if self.mesh else 1)
+
+    def _rebase_stack(self, old, per_segment, dtype: torch.dtype):
         """A new stack from the old snapshot's resident one: unchanged
         segments' rows copied on the device, changed segments' rows
         uploaded. None when there is no source or its dtype differs
-        from the new stack's (the caller re-stacks whole)."""
-        if old is None or old.dtype != dtype:
+        from the new stack's (the caller re-stacks whole). Under a mesh
+        each shard rebases on its own device: a logical segment i stays
+        at (device i mod D, local i // D) as the table grows, and new
+        local rows (padding) are zeros, fully invalid."""
+        if old is None:
+            return None
+        first = old[0] if isinstance(old, Sharded) else old
+        if first.dtype != dtype:
             return None
         rb = self._rebase
         changed = rb["changed"]
         cset = set(changed)
         n_new = len(self.table.segments)
         keep = [i for i in range(min(n_new, rb["old_n"])) if i not in cset]
-        out = torch.empty((n_new,) + tuple(old.shape[1:]), dtype=dtype,
-                          device=self.device)
-        if keep:
-            idx = torch.tensor(keep, dtype=torch.int64, device=self.device)
-            out.index_copy_(0, idx, old.index_select(0, idx))
-        if changed:
-            fresh = np.stack([per_segment(self.table.segments[i])
-                              for i in changed])
-            idx = torch.tensor(changed, dtype=torch.int64, device=self.device)
-            out.index_copy_(0, idx, self._put(fresh).to(dtype))
+        if self.mesh is None:
+            shards, devs, D = [old], [self.device], 1
+            new_rows = [n_new]
+        else:
+            shards, devs, D = list(old), list(self.mesh.devices), \
+                self.mesh.size
+            new_rows = [self.per_chip] * D
+        out = Sharded() if self.mesh is not None else None
+        for c, (src, dev) in enumerate(zip(shards, devs)):
+            # a fresh shard: zeros (padding is fully invalid)
+            dst = torch.zeros((new_rows[c],) + tuple(src.shape[1:]),
+                              dtype=dtype, device=dev)
+            mine = [i for i in keep if i % D == c]
+            if mine:
+                idx = torch.tensor([i // D for i in mine],
+                                   dtype=torch.int64, device=dev)
+                dst.index_copy_(0, idx, src.index_select(0, idx))
+            fresh_ids = [i for i in changed if i % D == c]
+            if fresh_ids:
+                fresh = np.stack([per_segment(self.table.segments[i])
+                                  for i in fresh_ids])
+                idx = torch.tensor([i // D for i in fresh_ids],
+                                   dtype=torch.int64, device=dev)
+                dst.index_copy_(0, idx, self._put_one(fresh, dev).to(dtype))
+            if out is None:
+                out = dst
+            else:
+                out.append(dst)
         self.rebased_cols += 1
         self.rebase_rows_uploaded += len(changed) * self.table.block_rows
         return out
 
     def _build(self, kind: str, name: str, per_segment, dtype: torch.dtype,
-               np_dtype=None) -> torch.Tensor:
+               np_dtype=None):
         """One stack: rebased from its source when there is one, else
         stacked and uploaded whole."""
         rb, old = self._rebase, None
@@ -316,37 +399,51 @@ class DeviceDataset:
             t = self._put(self._stack(per_segment, np_dtype))
         return t
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
+    def _put_one(self, arr: np.ndarray, device) -> torch.Tensor:
         arr = np.ascontiguousarray(arr)
         self.h2d_bytes += arr.nbytes
-        return torch.from_numpy(arr).to(self.device)
+        return torch.from_numpy(arr).to(device)
+
+    def _put(self, arr: np.ndarray):
+        """A host [S, ...] array in logical order on the device, or
+        Sharded over the mesh."""
+        if self.mesh is None:
+            return self._put_one(arr, self.device)
+        self.h2d_bytes += arr.nbytes
+        return shard_host(arr, self.mesh)
 
     def _stack(self, per_segment, dtype=None) -> np.ndarray:
+        """[S, R] of every segment in logical order, padded with zero
+        segments to the mesh's multiple."""
         rows = [per_segment(s) for s in self.table.segments]
+        fill = self.shape[0] - len(rows)
+        if fill > 0:
+            proto = rows[0] if rows else \
+                np.zeros(self.table.block_rows, dtype or np.int32)
+            rows = rows + [np.zeros_like(proto)] * fill
         if not rows:
             return np.zeros((0, self.table.block_rows), dtype or np.int32)
         return np.stack(rows)
 
-    def _account(self, kind: str, name: str, t: torch.Tensor, store,
-                 pinned):
+    def _account(self, kind: str, name: str, t, store, pinned):
         """Enter a new stack in the ledger; evicting it pops it from
         `store` (a dict, or None for the validity mask)."""
         if self.ledger is None:
             return
-        nbytes = t.numel() * t.element_size()
         if store is None:
             def drop():
                 self._valid = None
         else:
             def drop():
                 store.pop(name, None)
-        self.ledger.add((self.table.name, kind, name), nbytes, drop, pinned)
+        self.ledger.add((self.table.name, kind, name), _nbytes(t), drop,
+                        pinned)
 
     def _touch(self, kind: str, name: str):
         if self.ledger is not None:
             self.ledger.touch((self.table.name, kind, name))
 
-    def col(self, name: str, pinned=frozenset()) -> torch.Tensor:
+    def col(self, name: str, pinned=frozenset()):
         t = self._cols.get(name)
         if t is None:
             dt = narrow_dtype(self.table, name)
@@ -377,15 +474,14 @@ class DeviceDataset:
             self._touch("null", name)
         return t
 
-    def derived(self, token: str, build, pinned=frozenset()) -> \
-            torch.Tensor:
+    def derived(self, token: str, build, pinned=frozenset()):
         """Device-resident derived int32 stream [S, R] (precomputed dim
-        ids, bucket ids, filter translations), computed ONCE per content
-        token and reused across queries — a resident stream costs one
-        read like any column instead of a gather per dispatch. Evictable;
-        an evicted stream rebuilds. `pinned` must hold the in-flight
-        query's working set, so that this add cannot evict what the same
-        query is about to read."""
+        ids, bucket ids, filter translations; Sharded under a mesh),
+        computed ONCE per content token and reused across queries — a
+        resident stream costs one read like any column instead of a
+        gather per dispatch. Evictable; an evicted stream rebuilds.
+        `pinned` must hold the in-flight query's working set, so that
+        this add cannot evict what the same query is about to read."""
         t = self._derived.get(token)
         if t is None:
             t = self._derived[token] = build()
@@ -394,8 +490,8 @@ class DeviceDataset:
             self._touch("derived", token)
         return t
 
-    def valid(self, pinned=frozenset()) -> torch.Tensor:
-        """[S, R] row-validity (padding rows are False)."""
+    def valid(self, pinned=frozenset()):
+        """[S, R] row-validity (padding rows and segments are False)."""
         t = self._valid
         if t is None:
             r = np.arange(self.table.block_rows)
@@ -408,8 +504,9 @@ class DeviceDataset:
         self._rebase = None
         return t
 
-    def segment_mask(self, kept_ids) -> torch.Tensor:
-        """[S] bool on the device from the pruned segment ids."""
+    def segment_mask(self, kept_ids):
+        """[S] bool on the device from the pruned LOGICAL segment ids
+        (Sharded like the stacks under a mesh)."""
         m = np.zeros(self.shape[0], bool)
         m[list(kept_ids)] = True
         return self._put(m)
@@ -440,11 +537,11 @@ class DeviceDataset:
         stacks plus the validity mask."""
         total = 0
         for store in (self._cols, self._nulls, self._derived):
-            for t in store.values():
+            for t in list(store.values()):
                 if t is not None:
-                    total += t.numel() * t.element_size()
+                    total += _nbytes(t)
         if self._valid is not None:
-            total += self._valid.numel()
+            total += _nbytes(self._valid)
         return total
 
     def evict(self):
@@ -456,3 +553,10 @@ class DeviceDataset:
         self._rebase = None
         if self.ledger is not None:
             self.ledger.remove_table(self.table.name)
+
+
+def _nbytes(t) -> int:
+    """Bytes of a stack: one tensor, or every shard of a Sharded one."""
+    if isinstance(t, Sharded):
+        return t.nbytes
+    return t.numel() * t.element_size()

@@ -29,8 +29,9 @@ Tier 1 — per-segment partial aggregates (`SegmentCache`). Keyed by
   the generic reduce with the same extended key for sketch plans) and
   one copy back. Partials are CPU torch tensors throughout (fetched
   numpy arrays wrapped by torch.from_numpy), merged by the port's
-  kernels.groupby.merge_partials. The multi-GPU cache shards come with
-  ROADMAP queue A item 13.
+  kernels.groupby.merge_partials. Under a mesh the uncached segments
+  come from one segment-extended launch per device, and each entry is
+  a cache shard of its segment's device (segment i on device i mod D).
 
 Tier 2 — full results (`FullResultCache`). Keyed by (normalized query
   JSON including intervals, table generation).  A bounded LRU over the
@@ -49,8 +50,8 @@ Observability, as in the JAX package: hit/miss/bypass counters per tier
 (`result_cache_requests_total{tier,result}`), eviction counters, byte and
 entry gauges, `cache_invalidate` events, `snapshot()` (GET /debug/cache,
 sys.caches) and the tier-1 census behind sys.devices and the HBM
-ledger's `cache_pins` class (`shard_entries`, `shard_bytes`, on one
-device: every entry is chip 0's).
+ledger's `cache_pins` class (`shard_entries`, `shard_bytes`: the device
+of an entry is its segment's under the interleaved placement).
 """
 
 from __future__ import annotations
@@ -287,11 +288,13 @@ class ResultCache:
 
     # --------------------------------------------------- tier 1 (segment)
 
-    def tier1_bypass_reason(self, plan) -> str | None:
+    def tier1_bypass_reason(self, plan, mesh=None) -> str | None:
         """None when the per-segment tier can serve this plan, else why
-        not — surfaced in the metrics (`segment_cache`). The mesh
-        branch (per-(chip, segment) partials merged at the broker) comes
-        with the multi-GPU port, ROADMAP queue A item 13."""
+        not — surfaced in the metrics (`segment_cache`). A mesh is
+        served too: its per-(device, segment) partials come back per
+        device and merge at the broker (QueryRunner.
+        _run_seg_partials_mesh); the budgets below use the padded segment
+        count that launch covers."""
         if plan.kind != "agg":
             return "not an aggregation plan"
         if plan.sparse or plan.kernel is None:
@@ -301,6 +304,9 @@ class ResultCache:
         if any(dp.kind == "timeformat" for dp in plan.dim_plans):
             return "timeformat dimension layout is interval-dependent"
         n_seg = len(plan.table.segments)
+        if mesh is not None:
+            from tpu_olap_torch.executor.sharding import pad_segments
+            n_seg = pad_segments(max(n_seg, 1), mesh.size)
         from tpu_olap_torch.kernels.groupby import partials_radix
         radix = partials_radix(plan.agg_plans)
         state = n_seg * plan.total_groups * radix
@@ -428,8 +434,8 @@ class ResultCache:
 
     def shard_entries(self, num_shards: int) -> dict:
         """{chip index: live tier-1 entries}, the chip of segment sid
-        being sid mod num_shards (1 here: the one device) — the census
-        behind sys.devices and GET /debug/devices."""
+        being sid mod num_shards (the interleaved placement) — the
+        census behind sys.devices and GET /debug/devices."""
         d = max(1, int(num_shards))
         out: dict = {}
         with self._lock:
@@ -498,8 +504,8 @@ class ResultCache:
         whose segment token is still LIVE — untouched partitions carry
         their Segment uid through the incremental rebuild
         (segments/delta.py), so only the delta-touched partitions'
-        entries drop (under a mesh: only the affected chips' cache
-        shards)."""
+        entries drop: under a mesh, only the cache shards of the devices
+        that hold those segments."""
         purged = self.clear(table, tiers=("full",))
         with self._lock:
             dead = [k for k in list(self._seg)

@@ -82,10 +82,27 @@ rings and runs the sentinel's resource checks (`hbm`, `breaker`,
 `admission`, and the engine's `wal`). While a torch.profiler capture is
 live (obs.profile), each dispatch runs under `annotate_dispatch` with
 its query id; `profile_dir` profiles every statement into a trace of
-its own. `device_snapshot` (sys.devices) has one row, for the runner's
-torch device. Left for the multi-GPU port (ROADMAP queue A item 13): the
-mesh (per-GPU placement, the per-chip transfer fan-out, the broker
-merge), per-chip dispatch counts and the ledger's split over D devices.
+its own. `device_snapshot` (sys.devices) has one row per device.
+
+The mesh (EngineConfig.num_shards = D > 1; executor.sharding): the
+segment axis is split over D devices in one process, segment i on device
+i mod D, and every device aggregate launches once per device over that
+device's stacks inside the per-device local window
+(`_run_partials_mesh`). The cost model (planner.cost, under a
+`cost-decision` span) picks the merge: "historicals" queues one pinned
+copy per device, each behind its own event, and stage 2 waits on all D
+(the per-device transfer fan-out on the transfer stage's pool,
+`_complete_all`) before the host broker folds the unfinalized tables
+(`broker-merge` span); "broker" folds them on the mesh's first device
+and copies one table back. Packed results are bypassed under a mesh, as
+in the JAX package: the merge needs unfinalized partials. Scans,
+selects and searches run the row mask per device and put the rows back
+in logical segment order; the sparse group-by merges at the host
+("gather") or exchanges its compact entries between devices
+("exchange"); tier 1 runs one segment-extended launch per device; a
+batch launches the multi-leg kernel per device (executor.batch).
+`degrade_shards_on_retry` halves D after repeated device failure. Each
+device's dispatches count in `_chip_dispatches` (sys.devices).
 """
 
 from __future__ import annotations
@@ -101,6 +118,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from tpu_olap_torch.executor import sharding as sh
 from tpu_olap_torch.executor.config import EngineConfig
 from tpu_olap_torch.executor.dataset import DeviceDataset, HbmLedger
 from tpu_olap_torch.executor.lowering import PhysicalPlan, lower
@@ -119,7 +137,8 @@ from tpu_olap_torch.kernels.filtereval import _take
 from tpu_olap_torch.kernels import cuda_build, fused_reduce
 from tpu_olap_torch.kernels.groupby import (UnsupportedAggregation,
                                             group_reduce, merge_partials)
-from tpu_olap_torch.kernels.sparse_groupby import SENTINEL
+from tpu_olap_torch.kernels.sparse_groupby import (SENTINEL, exchange,
+                                                   merge_sparse)
 from tpu_olap_torch.ir.query import (GroupByQuerySpec, ScanQuerySpec,
                                      SearchQuerySpec,
                                      SegmentMetadataQuerySpec,
@@ -138,6 +157,7 @@ from tpu_olap_torch.obs.trace import (Tracer, current_query_id,
                                       span as _span)
 from tpu_olap_torch.obs.workload import (WorkloadProfiler, fingerprint_ir,
                                          in_introspection)
+from tpu_olap_torch.planner import cost as cost_mod
 from tpu_olap_torch.resilience.admission import AdmissionController
 from tpu_olap_torch.resilience.breaker import CircuitBreaker
 from tpu_olap_torch.resilience.errors import QueryError
@@ -285,10 +305,17 @@ class QueryRunner:
         self._batch_seq = 0
         self._profile_seq = 0  # profile_dir trace directories
         self._dispatches = 0   # guarded dispatches (sys.devices)
+        self._chip_dispatches: dict = {}  # mesh device -> dispatches
         self._wedged = False   # a deadline expired: re-probe before trusting
         # one ledger over every table's resident stacks, by owner class,
-        # all on the one device (the split over D GPUs is item 13)
+        # split per mesh device once the mesh exists
         self._ledger = HbmLedger(self.config.hbm_budget_bytes)
+        # the mesh: built here when num_shards > 1 (a mesh the devices
+        # cannot hold raises now, not at the first query), rebuilt
+        # smaller after a degradation
+        self._mesh = None
+        self._active_shards = self.config.num_shards
+        _ = self.mesh
         # observability (tpu_olap_torch.obs), all fed through record()
         self.history = HistoryRing(self.config.history_limit)
         self.tracer = Tracer(enabled=self.config.tracing_enabled,
@@ -455,6 +482,24 @@ class QueryRunner:
                      getattr(self._attempt_local, "value", 0))
 
     @property
+    def mesh(self):
+        """The mesh over `_active_shards` devices (executor.sharding),
+        built on first use; None for one device. The ledger learns the
+        device count the moment the mesh exists, so every later add
+        splits per device."""
+        if self._mesh is None and (self._active_shards or 1) > 1:
+            self._mesh = sh.make_mesh(self._active_shards,
+                                      self.config.device)
+            self._ledger.set_num_chips(self._mesh.size)
+        return self._mesh
+
+    def _note_chip_dispatch(self, chips):
+        """Per-device dispatch counts behind sys.devices."""
+        with self._totals_lock:
+            for c in chips:
+                self._chip_dispatches[c] = self._chip_dispatches.get(c, 0) + 1
+
+    @property
     def last_metrics(self) -> dict:
         """The metrics of the last statement this thread ran: pipelined
         execution runs several statements' stages at once, so each
@@ -585,9 +630,12 @@ class QueryRunner:
         if buf.device.type != "cuda":
             return _Transfer(buf, None, self._pin_inflight(nbytes), layout)
         host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-        host.copy_(buf, non_blocking=True)
-        event = torch.cuda.Event(blocking=True)
-        event.record()
+        # the copy and its event on the stream of the device that holds
+        # the output (a mesh queues one copy per device)
+        with torch.cuda.device(buf.device):
+            host.copy_(buf, non_blocking=True)
+            event = torch.cuda.Event(blocking=True)
+            event.record(torch.cuda.current_stream(buf.device))
         return _Transfer(host, event, self._pin_inflight(nbytes), layout)
 
     def _complete(self, tr: _Transfer, metrics: dict):
@@ -599,6 +647,16 @@ class QueryRunner:
         allocator does not hand its block to another copy while they are
         read."""
         t0 = time.perf_counter()
+        self._wait_transfer(tr, metrics)
+        metrics["transfer_ms"] = round(
+            metrics.get("transfer_ms", 0.0)
+            + (time.perf_counter() - t0) * 1000, 3)
+        return self._host_view(tr)
+
+    def _wait_transfer(self, tr: _Transfer, metrics: dict):
+        """One copy's transfer node: the "transfer" stage section and
+        the "host-transfer" fault site, the wait on its event, the
+        unpin."""
         self._note_transfer(1)
         try:
             with self.stages.stage("transfer", metrics):
@@ -610,9 +668,27 @@ class QueryRunner:
             if tr.pin is not None:
                 self._ledger.unpin_inflight(tr.pin)
                 tr.pin = None
+
+    def _complete_all(self, trs: list, metrics: dict) -> list:
+        """Stage 2 of a mesh statement: every device's copy waited on its
+        own transfer node (stages.map_stage: the D waits overlap one
+        another, and the caller's thread takes the first), then viewed
+        as numpy. One copy degrades to `_complete`."""
+        if len(trs) == 1:
+            return [self._complete(trs[0], metrics)]
+        t0 = time.perf_counter()
+        self.stages.map_stage(
+            "transfer", [(lambda tr=tr: self._wait_transfer(tr, metrics))
+                         for tr in trs])
         metrics["transfer_ms"] = round(
             metrics.get("transfer_ms", 0.0)
             + (time.perf_counter() - t0) * 1000, 3)
+        metrics["transfer_fanout"] = len(trs)
+        return [self._host_view(tr) for tr in trs]
+
+    def _host_view(self, tr: _Transfer):
+        """A waited copy's pinned bytes as numpy (a {name: array} dict
+        for a dict fetch)."""
         host = tr.host.numpy()
         if tr.layout is None:
             return host
@@ -626,20 +702,30 @@ class QueryRunner:
         return res
 
     def _staged_fetch(self, launch, metrics: dict, dispatch_span=True):
+        """One two-stage round of one output: `_staged_fetch_all` of
+        `launch()`'s one output."""
+        return self._staged_fetch_all(lambda: [launch()], metrics,
+                                      dispatch_span)[0]
+
+    def _staged_fetch_all(self, launch, metrics: dict, dispatch_span=True):
         """One two-stage round: stage 1 (`launch()` under the enqueue
         lock, inside a `dispatch` span unless the caller opened one, then
-        the queued copy) and stage 2 (`_complete`, inside a
-        `host-transfer` span). A failed stage 2 still releases the
-        pin."""
-        with self._enqueue_lock(metrics):
-            with _span("dispatch") if dispatch_span else nullcontext():
-                tr = self._enqueue_fetch(launch(), metrics)
+        one queued copy per output it returns: one per mesh device, or
+        one) and stage 2 (`_complete_all`, inside a `host-transfer`
+        span: every copy's event waited on). Returns the host results in
+        order. A failed stage 2 still releases the pins."""
+        trs = []
         try:
+            with self._enqueue_lock(metrics):
+                with _span("dispatch") if dispatch_span else nullcontext():
+                    for out in launch():
+                        trs.append(self._enqueue_fetch(out, metrics))
             with _span("host-transfer"):
-                return self._complete(tr, metrics)
+                return self._complete_all(trs, metrics)
         finally:
-            if tr.pin is not None:
-                self._ledger.unpin_inflight(tr.pin)
+            for tr in trs:
+                if tr.pin is not None:
+                    self._ledger.unpin_inflight(tr.pin)
 
     # ------------------------------------------------------ batch, API
 
@@ -780,7 +866,11 @@ class QueryRunner:
         breaker failure and re-raises. Structural refusals
         (UnsupportedAggregation) and taxonomy errors (QueryError: a lock
         unavailable within the deadline, a pipeline shed) pass through
-        untouched: retrying cannot change them."""
+        untouched: retrying cannot change them. With a mesh and
+        degrade_shards_on_retry, a retry halves the mesh instead (every
+        table's stacks purged and re-placed over the smaller mesh): the
+        in-process analog of re-sharding the segment manifest after a
+        device loss."""
         attempts = max(1, self.config.dispatch_retries + 1)
         for attempt in range(attempts):
             try:
@@ -815,7 +905,18 @@ class QueryRunner:
                 purge_lock = self.dispatch_lock if self._pipelined \
                     else nullcontext()
                 with purge_lock:
-                    self.clear_cache(table_name)
+                    if self.config.degrade_shards_on_retry and \
+                            (self._active_shards or 1) > 1:
+                        # a mesh shrink re-places every table
+                        self.clear_cache()
+                        self._mesh = None
+                        self._active_shards = max(
+                            1, self._active_shards // 2)
+                        if self._active_shards == 1:
+                            self._ledger.set_num_chips(1)
+                        metrics["degraded_shards"] = self._active_shards
+                    else:
+                        self.clear_cache(table_name)
             finally:
                 self._attempt_local.value = 0
 
@@ -894,8 +995,9 @@ class QueryRunner:
             with self._cache_lock:
                 plans = [plan for _, plan in self._plan_cache.values()]
             for plan in plans:
-                plan.__dict__.pop("_device_consts", None)
-                plan.__dict__.pop("_device_seg_mask", None)
+                for k in ("_device_consts", "_device_seg_mask",
+                          "_mesh_consts", "_mesh_seg_mask"):
+                    plan.__dict__.pop(k, None)
         finally:
             self.dispatch_lock.release()
         self.admission.reset_pipeline()
@@ -1098,9 +1200,9 @@ class QueryRunner:
 
     def _refresh_hbm_chip_gauges(self):
         """Per-(chip, owner-class) device-memory gauges: the ledger's
-        exact attribution plus high-watermark and headroom against the
-        budget — the /metrics face of sys.devices' hbm columns (one
-        chip, 0, the runner's device)."""
+        exact attribution plus high-watermark and headroom against each
+        device's share of the budget — the /metrics face of
+        sys.devices' hbm columns."""
         m = self.metrics
         g_bytes = m.gauge(
             "hbm_chip_bytes",
@@ -1117,72 +1219,94 @@ class QueryRunner:
         ledger = self._ledger
         snap = ledger.breakdown()
         hwm = ledger.watermarks()
-        in_ledger = 0
+        D = ledger.num_chips
+        in_ledger = [0] * D
         seen = set()
         for (c, owner), b in snap.items():
-            if owner != "cache_pins":
-                in_ledger += b
+            if owner != "cache_pins" and c < D:
+                in_ledger[c] += b
             g_bytes.set(b, chip=c, owner=owner)
             seen.add((str(c), owner))
         for key in list(g_bytes.series):
             if tuple(key) not in seen:  # released class: zero, not stale
                 g_bytes.set(0.0, chip=key[0], owner=key[1])
-        g_hwm.set(hwm["per_chip"][0], chip=0)
-        if ledger.budget:
-            g_head.set(ledger.budget - in_ledger, chip=0)
+        for c in range(D):
+            g_hwm.set(hwm["per_chip"][c] if c < len(hwm["per_chip"])
+                      else 0, chip=c)
+            if ledger.budget:
+                g_head.set(ledger.budget / D - in_ledger[c], chip=c)
         m.gauge("hbm_high_watermark_bytes",
                 "Ledger-managed total HBM high-watermark.") \
             .set(hwm["total"])
 
     def device_snapshot(self) -> list:
-        """Serving state of the runner's device, behind sys.devices and
-        GET /debug/devices: one row (the multi-GPU placement is ROADMAP
-        queue A item 13) with its segments, resident bytes, guarded
-        dispatches, tier-1 cache entries, rebase counts, and the
-        ledger's exact per-owner-class bytes (table columns, cube
-        tables, in-flight pins; they sum to bytes_in_use) beside the
-        tier-1 cache's byte census, the high-watermark and the headroom
-        against hbm_budget_bytes."""
-        dev = self.device
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        segments = resident = rebased_cols = rebase_rows = 0
+        """Serving state per device, behind sys.devices and GET
+        /debug/devices: one row per mesh device (one row, the runner's
+        device, without a mesh) with the logical segments it owns under
+        the interleaved placement (segment i on device i mod D), its
+        resident bytes, its dispatches, its tier-1 cache entries (the
+        device of an entry is its segment's), the rebase counts, and the
+        ledger's exact per-owner-class bytes on it (table columns, cube
+        tables, in-flight pins; over every row they sum to bytes_in_use)
+        beside the tier-1 cache's byte census, the high-watermark and
+        the headroom against the device's share of hbm_budget_bytes."""
+        mesh = self.mesh
+        if mesh is not None:
+            devs = list(mesh.devices)
+        else:
+            dev = self.device
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            devs = [dev]
+        D = len(devs)
+        seg = [0] * D
+        res_bytes = [0] * D
+        rebased_cols = rebase_rows = 0
         for _name, ds in list(self._datasets.items()):
-            segments += len(ds.table.segments)
-            resident += ds.resident_bytes()
+            n_seg = len(ds.table.segments)
+            q, r = divmod(ds.resident_bytes(), D)
+            for c in range(D):
+                seg[c] += len(range(c, n_seg, D))
+                res_bytes[c] += q + (1 if c < r else 0)
             rebased_cols += ds.rebased_cols
             rebase_rows += ds.rebase_rows_uploaded
+        cache_by_chip = self.result_cache.shard_entries(D)
         ledger = self._ledger
         hbm = ledger.breakdown()
-        col_b = hbm.get((0, "table_columns"), 0)
-        cube_b = hbm.get((0, "cube_tables"), 0)
-        infl_b = hbm.get((0, "inflight"), 0)
-        in_ledger = col_b + cube_b + infl_b
+        hwm = ledger.watermarks()["per_chip"]
+        budget = ledger.budget
         with self._totals_lock:
-            dispatches = self._dispatches
-        return [{
-            "index": 0,
-            "device": str(dev),
-            "platform": dev.type,
-            "process": 0,
-            "chips": 1,
-            "segments": segments,
-            "resident_bytes": int(resident),
-            "dispatches": dispatches,
-            "cache_shard_entries": self.result_cache.shard_entries(1)
-            .get(0, 0),
-            "rebased_cols": rebased_cols,
-            "rebase_rows_uploaded": rebase_rows,
-            "hbm_bytes": int(in_ledger),
-            "table_column_bytes": int(col_b),
-            "cube_table_bytes": int(cube_b),
-            "inflight_bytes": int(infl_b),
-            "cache_pin_bytes": int(hbm.get((0, "cache_pins"), 0)),
-            "hbm_high_watermark_bytes": int(
-                ledger.watermarks()["per_chip"][0]),
-            "hbm_headroom_bytes": (int(ledger.budget - in_ledger)
-                                   if ledger.budget else None),
-        }]
+            disp = dict(self._chip_dispatches) if mesh is not None \
+                else {0: self._dispatches}
+        rows = []
+        for c, dev in enumerate(devs):
+            col_b = hbm.get((c, "table_columns"), 0)
+            cube_b = hbm.get((c, "cube_tables"), 0)
+            infl_b = hbm.get((c, "inflight"), 0)
+            in_ledger = col_b + cube_b + infl_b
+            rows.append({
+                "index": c,
+                "device": str(dev),
+                "platform": dev.type,
+                "process": 0,
+                "chips": D,
+                "segments": seg[c],
+                "resident_bytes": int(res_bytes[c]),
+                "dispatches": disp.get(c, 0),
+                "cache_shard_entries": cache_by_chip.get(c, 0),
+                "rebased_cols": rebased_cols,
+                "rebase_rows_uploaded": rebase_rows,
+                "hbm_bytes": int(in_ledger),
+                "table_column_bytes": int(col_b),
+                "cube_table_bytes": int(cube_b),
+                "inflight_bytes": int(infl_b),
+                "cache_pin_bytes": int(hbm.get((c, "cache_pins"), 0)),
+                "hbm_high_watermark_bytes": int(
+                    hwm[c] if c < len(hwm) else 0),
+                "hbm_headroom_bytes": (int(budget / D - in_ledger)
+                                       if budget else None),
+            })
+        return rows
 
     def counters(self) -> dict:
         """Aggregate counters, kept incrementally at record time: exact
@@ -1377,7 +1501,8 @@ class QueryRunner:
             # rows upload). It is evicted after the new dataset has
             # taken its stacks; in-flight queries that hold its tensors
             # keep them alive by reference.
-            ds = DeviceDataset(table, self.device, self._ledger, prev=prev)
+            ds = DeviceDataset(table, self.device, self._ledger, prev=prev,
+                               mesh=self.mesh)
             if prev is not None:
                 prev.evict()
             self._datasets[table.name] = ds
@@ -1435,11 +1560,22 @@ class QueryRunner:
                 self._plan_cache[key] = (table, plan)
             return plan
 
-    def _device_consts(self, plan: PhysicalPlan) -> dict:
-        """The plan's ConstPool on the device, once per plan. Scalars ride
-        as 1-element tensors: torch lets a 0-d int64 tensor take the
-        dtype of an int8 column it meets (and wrap), where numpy and JAX
-        promote to int64; a 1-element tensor promotes like numpy."""
+    def _device_consts(self, plan: PhysicalPlan, mesh=None):
+        """The plan's ConstPool on the device, once per plan (under a
+        mesh: a list of one copy per device, once per plan and mesh).
+        Scalars ride as 1-element tensors: torch lets a 0-d int64 tensor
+        take the dtype of an int8 column it meets (and wrap), where numpy
+        and JAX promote to int64; a 1-element tensor promotes like
+        numpy."""
+        if mesh is not None:
+            hit = getattr(plan, "_mesh_consts", None)
+            if hit is None or hit[0] != mesh:
+                host = {k: torch.as_tensor(np.atleast_1d(v))
+                        for k, v in plan.pool.consts.items()}
+                hit = plan._mesh_consts = (mesh, [
+                    {k: t.to(dev) for k, t in host.items()}
+                    for dev in mesh.devices])
+            return hit[1]
         consts = getattr(plan, "_device_consts", None)
         if consts is None:
             consts = plan._device_consts = {
@@ -1460,35 +1596,58 @@ class QueryRunner:
         return out
 
     def _prepare_inner(self, plan: PhysicalPlan, metrics: dict, pinned):
+        """Under a mesh the stacks are Sharded, the constant pool is one
+        dict per device, and every derived stream builds per device from
+        that device's shard."""
         table = plan.table
         ds = self._dataset(table)
+        mesh = ds.mesh
         if pinned is None:
             pinned = self.pins([plan])
         env = ds.env(plan.columns, plan.null_cols, pinned)
-        consts = self._device_consts(plan)
+        consts = self._device_consts(plan, mesh)
+
+        def per_device(fn, *stacks):
+            # fn(stack..., consts) on the one device, or per mesh device
+            if mesh is None:
+                return fn(*stacks, consts)
+            return sh.map_shards(mesh, fn, *stacks, consts)
+
         for dp in plan.dim_plans:
             if dp.cache_token is not None:
+                src = dp.source_col if dp.source_col is not None \
+                    else TIME_COLUMN
                 env["cols"][dp.derived_name] = ds.derived(
-                    dp.cache_token,
-                    lambda dp=dp: self._build_derived(ds, consts, dp,
-                                                      pinned), pinned)
+                    dp.cache_token, lambda dp=dp, src=src: per_device(
+                        lambda t, c, dp=dp, src=src:
+                            dp.ids({"cols": {src: t}, "nulls": {}}, c)
+                            .to(torch.int32),
+                        ds.col(src, pinned)), pinned)
         bp = plan.bucket_plan
         if bp is not None and bp.cache_token:
             env["cols"][bp.derived_name] = ds.derived(
-                bp.cache_token,
-                lambda: bp.build_stream(ds.col(TIME_COLUMN, pinned), consts)
-                .to(torch.int32), pinned)
+                bp.cache_token, lambda: per_device(
+                    lambda t, c: bp.build_stream(t, c).to(torch.int32),
+                    ds.col(TIME_COLUMN, pinned)), pinned)
         for token, src, cname in plan.filter_streams:
             env["cols"]["\0d:" + token] = ds.derived(
-                token, lambda src=src, cname=cname:
-                    _take(consts[cname], ds.col(src, pinned))
-                    .to(torch.int32), pinned)
+                token, lambda src=src, cname=cname: per_device(
+                    lambda t, c, cname=cname:
+                        _take(c[cname], t).to(torch.int32),
+                    ds.col(src, pinned)), pinned)
         valid = ds.valid(pinned)
         kept = plan.pruned_ids if not plan.empty else []
-        # once per plan: a host-to-device copy per query would sync
-        seg_mask = getattr(plan, "_device_seg_mask", None)
-        if seg_mask is None:
-            seg_mask = plan._device_seg_mask = ds.segment_mask(kept)
+        # once per plan (and mesh): a host-to-device copy per query
+        # would sync
+        if mesh is not None:
+            hit = getattr(plan, "_mesh_seg_mask", None)
+            if hit is None or hit[0] != mesh:
+                hit = plan._mesh_seg_mask = (mesh, ds.segment_mask(kept))
+            seg_mask = hit[1]
+        else:
+            seg_mask = getattr(plan, "_device_seg_mask", None)
+            if seg_mask is None:
+                seg_mask = plan._device_seg_mask = ds.segment_mask(kept)
         metrics["segments_total"] = len(table.segments)
         metrics["segments_scanned"] = len(kept)
         metrics["rows_scanned"] = int(sum(
@@ -1498,24 +1657,17 @@ class QueryRunner:
             metrics["hbm_evictions"] = self._ledger.evictions
         return env, valid, seg_mask, consts
 
-    @staticmethod
-    def _build_derived(ds, consts, dp, pinned=frozenset()) -> torch.Tensor:
-        """One precomputed dim id stream [S, R] int32 from its resident
-        source column (dictionary codes for remap, __time for
-        timeformat)."""
-        src = dp.source_col if dp.source_col is not None else TIME_COLUMN
-        env = {"cols": {src: ds.col(src, pinned)}, "nulls": {}}
-        return dp.ids(env, consts).to(torch.int32)
-
     def _segment_window(self, plan: PhysicalPlan, n_segments: int):
         """(lo, W) covering every pruned segment, or None. Interval and
         bounds pruning is mask-only inside the kernel (pruned segments
         still cost their bytes); with time-partitioned ingest the pruned
         set is contiguous on the segment axis, so the dispatch slices the
         [S, R] working set down to a pow2-quantized window and reads ONLY
-        those bytes. Skipped when the window saves <25%."""
+        those bytes. Skipped when the window saves <25%, and under a mesh
+        (whose aggregates cut the per-device window instead,
+        sharding.local_window)."""
         ids = plan.pruned_ids
-        if plan.empty or not ids:
+        if self.mesh is not None or plan.empty or not ids:
             return None
         lo, hi = min(ids), max(ids) + 1
         W = _next_pow2(hi - lo)
@@ -1543,7 +1695,9 @@ class QueryRunner:
     def _run_partials(self, plan: PhysicalPlan, metrics: dict) -> dict:
         """Unpacked route: the plan's kernel and every partial table back
         in one copy. Stage 1 launches and queues the copy; stage 2 waits
-        for it."""
+        for it. Under a mesh: `_run_partials_mesh`."""
+        if self.mesh is not None:
+            return self._run_partials_mesh(plan, metrics)
         t0 = time.perf_counter()
         with self._pipeline_slot():
             out = self._staged_fetch(
@@ -1551,6 +1705,80 @@ class QueryRunner:
                 metrics)
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
         return out
+
+    def _run_partials_mesh(self, plan: PhysicalPlan, metrics: dict):
+        """The plan's kernel once per mesh device over that device's
+        stacks. An aggregate runs inside the per-device local window
+        (sharding.local_window) and merges as the cost model says:
+        "historicals" copies the D unfinalized partial tables to the host
+        (one pinned copy per device, each behind its own event) and the
+        broker folds them there; "broker" folds them on the mesh's first
+        device and copies one table back. A mask plan's per-device row
+        masks come back, one copy per device, in logical segment order
+        ([S, R] over the table's segments), as every assembler indexes
+        rows by logical segment id."""
+        mesh = self.mesh
+        D = mesh.size
+        is_agg = plan.kind == "agg"
+        info = {"strategy": "mask"}
+
+        def launch():
+            env, valid, seg_mask, consts = self._prepare(plan, metrics)
+            per_chip = valid[0].shape[0]
+            win = None
+            if is_agg:
+                with _span("cost-decision") as sp:
+                    decision = cost_mod.decide(plan, self.config, D)
+                    strategy = decision.strategy
+                    # as in the JAX package, whose historicals key
+                    # extends by the chip: past int32, fold on a device
+                    if strategy == "historicals" and \
+                            D * plan.total_groups >= (1 << 31):
+                        strategy = "broker"
+                    sp.set(strategy=strategy)
+                info["strategy"] = strategy
+                metrics["cost"] = decision.to_json()
+                win = sh.local_window(plan.pruned_ids, D, per_chip) \
+                    if not plan.empty else None
+                if win is not None:
+                    metrics["segments_window"] = win[1] * D
+                    metrics["segments_window_per_chip"] = win[1]
+            else:
+                metrics["mask_kernel"] = plan.mask_reason is None
+                if plan.mask_reason is not None:
+                    metrics["mask_reason"] = plan.mask_reason
+            with _span("dispatch", num_shards=D, strategy=info["strategy"]):
+                outs = sh.launch_per_device(
+                    mesh, plan.kernel,
+                    sh.device_args(env, valid, seg_mask, consts, win))
+            self._note_chip_dispatch(range(D))
+            if info["strategy"] == "broker":
+                with _span("device-fold", num_shards=D):
+                    outs = [sh.device_fold(outs, plan.agg_plans,
+                                           mesh.devices[0])]
+            return outs
+
+        t0 = time.perf_counter()
+        with self._pipeline_slot():
+            hosts = self._staged_fetch_all(launch, metrics,
+                                           dispatch_span=False)
+        metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
+        metrics["num_shards"] = D
+        metrics["strategy"] = info["strategy"]
+        if not is_agg:
+            table = plan.table
+            masks = [m.reshape(-1, table.block_rows) for m in hosts]
+            full = np.empty((D * masks[0].shape[0], table.block_rows), bool)
+            for c, m in enumerate(masks):
+                full[c::D] = m   # local index l of device c: segment c + lD
+            return full[:len(table.segments)]
+        if info["strategy"] == "historicals":
+            with _span("broker-merge", num_shards=D):
+                out = sh.broker_merge(hosts, plan.agg_plans)
+            metrics["merge"] = "broker"
+            return {n: t.numpy() for n, t in out.items()}
+        metrics["merge"] = "device"
+        return hosts[0]
 
     def _cap_hint(self, plan: PhysicalPlan, route: str, first: int,
                   limit: int) -> tuple:
@@ -1605,7 +1833,9 @@ class QueryRunner:
         table cap; each attempt is one stage-1 enqueue and one copy back,
         read in stage 2. Past `sparse_group_budget` present groups it
         raises UnsupportedAggregation, and the engine serves the query
-        from the fallback interpreter."""
+        from the fallback interpreter. Under a mesh: `_run_sparse_mesh`."""
+        if self.mesh is not None:
+            return self._run_sparse_mesh(plan, metrics)
         cap_limit = min(self.config.sparse_group_budget, plan.total_groups)
         key, cap = self._cap_hint(plan, "sparse",
                                   self.config.sparse_group_cap, cap_limit)
@@ -1636,6 +1866,103 @@ class QueryRunner:
         metrics["result_groups"] = count
         metrics["result_cap"] = cap
         metrics["sparse_reruns"] = reruns  # the caps that overflowed
+        return out
+
+    def _run_sparse_mesh(self, plan: PhysicalPlan, metrics: dict) -> dict:
+        """The sparse group-by over the mesh: every device compacts its
+        own rows (one launch each), under an adaptive local cap that
+        re-runs while a device's groups overflow it, up to
+        `sparse_group_budget` per device. Then, per
+        EngineConfig.sparse_merge:
+
+        - "gather": every device's compact table comes to the host (one
+          copy each) and the broker merges them (merge_sparse); the
+          merged groups must fit `sparse_group_budget`;
+        - "exchange": only each device's group count comes back first;
+          then every device's entries go to their owner devices
+          (kernels.sparse_groupby.exchange: hash of the key mod D, copied
+          device to device), each owner merges what it received, and the
+          D owner tables come to the host, where their disjoint keys are
+          put in order. The present groups may reach
+          D x sparse_group_budget, and a skewed key set only loads one
+          owner (`result_cap_owner`: the largest owner table).
+
+        Returns the sparse route's compact table (numpy, sorted by key)."""
+        mesh = self.mesh
+        D = mesh.size
+        use_exchange = self.config.sparse_merge == "exchange"
+        budget = self.config.sparse_group_budget
+        cap_limit = min(budget * (D if use_exchange else 1),
+                        plan.total_groups)
+        local_limit = min(budget, plan.total_groups)
+        key, cap = self._cap_hint(plan, "sparse-local",
+                                  self.config.sparse_group_cap, local_limit)
+        state = {"args": None, "outs": None}
+        reruns = []
+        t0 = time.perf_counter()
+        with self._pipeline_slot(), \
+                _span("dispatch", sparse=True, num_shards=D) as sp:
+            while True:
+                def launch(cap=cap):
+                    if state["args"] is None:
+                        state["args"] = sh.device_args(
+                            *self._prepare(plan, metrics))
+                    outs = state["outs"] = sh.launch_per_device(
+                        mesh, plan.make_sparse_kernel(cap), state["args"])
+                    self._note_chip_dispatch(range(D))
+                    if use_exchange:  # the tables stay on their devices
+                        return [o["_count"] for o in outs]
+                    return outs
+                hosts = self._staged_fetch_all(launch, metrics,
+                                               dispatch_span=False)
+                counts = [int(h["_count"] if isinstance(h, dict) else h[0])
+                          for h in hosts]
+                local_max = max(counts)
+                if local_max <= cap:
+                    break
+                if local_max > local_limit:
+                    raise UnsupportedAggregation(
+                        f"{local_max} per-chip present groups exceed sparse "
+                        f"budget {local_limit}")
+                reruns.append(cap)
+                cap = min(local_limit, _next_pow2(local_max))
+            self._cap_hints[key] = local_max
+            if use_exchange:
+                caps = []
+
+                def launch_exchange():
+                    merged, c = exchange(state["outs"], counts,
+                                         list(mesh.devices), plan.agg_plans,
+                                         cap_limit)
+                    caps.extend(c)
+                    return merged
+                with _span("exchange", num_shards=D):
+                    owners = self._staged_fetch_all(launch_exchange, metrics,
+                                                    dispatch_span=False)
+                with _span("broker-merge", num_shards=D):
+                    out = _concat_owner_tables(owners)
+                metrics["sparse_merge"] = "exchange"
+                metrics["result_cap_owner"] = max(caps)
+            else:
+                with _span("broker-merge", num_shards=D):
+                    cap_global = min(cap_limit, max(64, _next_pow2(
+                        max(1, sum(counts)))))
+                    merged = merge_sparse(
+                        [{n: torch.as_tensor(v) for n, v in h.items()}
+                         for h in hosts], plan.agg_plans, cap_global)
+                    out = {n: t.numpy() for n, t in merged.items()}
+            state.clear()
+            count = int(out["_count"])
+            if count > cap_limit:
+                raise UnsupportedAggregation(
+                    f"{count} present groups exceed sparse budget "
+                    f"{cap_limit}")
+            sp.set(result_groups=count)
+        metrics["num_shards"] = D
+        metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
+        metrics["result_groups"] = count
+        metrics["result_cap"] = cap
+        metrics["sparse_reruns"] = reruns  # the local caps that overflowed
         return out
 
     def _run_agg(self, query, table) -> QueryResult:
@@ -1679,9 +2006,11 @@ class QueryRunner:
                                              keep_raw, table)
             t0 = time.perf_counter()
         if arrays is None:
-            packed = None if keep_raw else self._dispatch(
-                lambda: self._run_packed(plan, metrics), metrics,
-                table.name)
+            # a mesh merges unfinalized partials: no packed route
+            packed = None if keep_raw or self.mesh is not None \
+                else self._dispatch(
+                    lambda: self._run_packed(plan, metrics), metrics,
+                    table.name)
             if packed is not None:
                 metrics["route"] = "packed"
                 idx, compact, layout = packed
@@ -1694,8 +2023,8 @@ class QueryRunner:
                         _span("finalize"):
                     arrays = densify(idx, compact, layout, plan.agg_plans)
             else:
-                # theta set ops, or a packed overflow past
-                # result_group_cap
+                # theta set ops, a packed overflow past
+                # result_group_cap, or a mesh
                 metrics["route"] = "unpacked"
                 partials = self._dispatch(
                     lambda: self._run_partials(plan, metrics), metrics,
@@ -1729,7 +2058,7 @@ class QueryRunner:
         rc = self.result_cache
         if in_introspection():
             return None
-        reason = rc.tier1_bypass_reason(plan)
+        reason = rc.tier1_bypass_reason(plan, self.mesh)
         if reason is not None:
             metrics["segment_cache"] = f"bypass: {reason}"
             rc.count_bypass()
@@ -1791,12 +2120,14 @@ class QueryRunner:
         of the segments to compute (W a power of two, so that a plan
         compiles at most log2(S) variants and a sliding window of the
         same W compiles nothing), and the segment mask admits only
-        `compute_ids`. Fused plans launch the segment-extended fused
+        `compute_ids`. Under a mesh: `_run_seg_partials_mesh`. Fused plans launch the segment-extended fused
         reduce once (kernels.fused_reduce.fused_reduce_seg); others (HLL,
         theta) run the generic reduce with the same extended key. Either
         way one copy, queued in stage 1 and read in stage 2, brings every
         segment's partials back. A failure raises: nothing serves the
         plain path in its place."""
+        if self.mesh is not None:
+            return self._run_seg_partials_mesh(plan, metrics, compute_ids)
         table = plan.table
         K = plan.total_groups
         win = []
@@ -1809,26 +2140,7 @@ class QueryRunner:
             W = min(_next_pow2(hi - lo), S)
             lo = min(lo, S - W)
             win[:] = [lo, W]
-            if plan.fused_reason is None:
-                prog = fused_reduce.program(plan, table)
-                sums, mins = fused_reduce.fused_reduce_seg(
-                    prog, fused_reduce.program_inputs(prog, env), valid,
-                    seg_mask, K, lo, W)
-                return fused_reduce.partials(plan, sums, mins)
-            sl = slice(lo, lo + W)
-            flat = {kind: {c: a[sl].reshape(-1)
-                           for c, a in env[kind].items()}
-                    for kind in ("cols", "nulls")}
-            base = (valid[sl] & seg_mask[sl, None]).reshape(-1)
-            key, mask, fenv = plan.front_half(flat, base, consts)
-            seg_local = torch.arange(W, dtype=torch.int32,
-                                     device=key.device) \
-                .repeat_interleave(valid.shape[1])
-            # int32 is safe: tier1_bypass_reason refuses key spaces of
-            # 2^31 and more
-            key2 = seg_local * K + key.to(torch.int32)
-            return group_reduce(key2, mask, fenv, plan.agg_plans, W * K,
-                                consts)
+            return _seg_partials(plan, env, valid, seg_mask, consts, lo, W)
 
         t0 = time.perf_counter()
         with self._pipeline_slot(), self._observe_compiles():
@@ -1845,6 +2157,54 @@ class QueryRunner:
         shaped = {n: torch.from_numpy(a.copy()).reshape(
                   (W, K) + a.shape[1:]) for n, a in host.items()}
         return {sid: {n: a[sid - lo] for n, a in shaped.items()}
+                for sid in compute_ids}
+
+    def _run_seg_partials_mesh(self, plan: PhysicalPlan, metrics: dict,
+                               compute_ids: list) -> dict:
+        """`_run_seg_partials` over the mesh: one segment-extended launch
+        per device over the LOCAL window [lo, lo + W) that covers every
+        computed segment's local index (logical segment i is local i // D
+        on device i mod D), one copy per device, and one cache shard per
+        computed segment cut from its device's [W * K] table. `lo` is a
+        launch argument, so a sliding window of the same W compiles
+        nothing."""
+        mesh = self.mesh
+        D = mesh.size
+        table = plan.table
+        K = plan.total_groups
+        win = []
+
+        def launch():
+            env, valid, _, consts = self._prepare(plan, metrics)
+            seg_mask = self._dataset(table).segment_mask(compute_ids)
+            per_chip = valid[0].shape[0]
+            lo = min(i // D for i in compute_ids)
+            hi = max(i // D for i in compute_ids) + 1
+            W = min(_next_pow2(hi - lo), per_chip)
+            lo = min(lo, per_chip - W)
+            win[:] = [lo, W]
+            outs = sh.launch_per_device(
+                mesh, lambda e, v, m, c: _seg_partials(plan, e, v, m, c,
+                                                       lo, W),
+                sh.device_args(env, valid, seg_mask, consts))
+            self._note_chip_dispatch(range(D))
+            return outs
+
+        t0 = time.perf_counter()
+        with self._pipeline_slot(), self._observe_compiles():
+            hosts = self._staged_fetch_all(launch, metrics)
+        lo, W = win
+        metrics["segments_scanned"] = len(compute_ids)
+        metrics["rows_scanned"] = int(sum(
+            table.segments[i].meta.n_valid for i in compute_ids))
+        metrics["segments_window"] = W * D
+        metrics["segments_window_per_chip"] = W
+        metrics["num_shards"] = D
+        metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
+        shaped = [{n: torch.from_numpy(a.copy()).reshape((W, K) + a.shape[1:])
+                   for n, a in host.items()} for host in hosts]
+        return {sid: {n: a[sid // D - lo]
+                      for n, a in shaped[sid % D].items()}
                 for sid in compute_ids}
 
     def compute_partials(self, query, table):
@@ -2051,6 +2411,9 @@ class QueryRunner:
         t0 = time.perf_counter()
 
         def fetch_mask():
+            if self.mesh is not None:
+                # per device, back in logical segment order
+                return self._run_partials_mesh(plan, metrics)
             with self._pipeline_slot():
                 return self._staged_fetch(
                     lambda: self._run_mask(plan, metrics), metrics)
@@ -2131,6 +2494,9 @@ class QueryRunner:
                     cards)
 
             def fetch_counts():
+                if self.mesh is not None:
+                    return self._search_counts_mesh(plan, table, coded,
+                                                    cards, metrics)
                 with self._pipeline_slot():
                     return self._staged_fetch(counts, metrics)
             packed = self._dispatch(fetch_counts, metrics, table.name)
@@ -2179,6 +2545,32 @@ class QueryRunner:
         druid = [{"timestamp": iso(t0), "result": hits}]
         return QueryResult(query, hits, druid, metrics)
 
+    def _search_counts_mesh(self, plan, table, coded, cards, metrics):
+        """Search's code counts over the mesh: per device, the row mask
+        and the counts of its own rows (one copy each), summed on the
+        host; padding segments are invalid rows and count nothing."""
+        mesh = self.mesh
+
+        def launch():
+            env, valid, seg_mask, consts = self._prepare(plan, metrics)
+            metrics["mask_kernel"] = plan.mask_reason is None
+            if plan.mask_reason is not None:
+                metrics["mask_reason"] = plan.mask_reason
+            masks = sh.launch_per_device(
+                mesh, plan.kernel,
+                sh.device_args(env, valid, seg_mask, consts))
+            self._note_chip_dispatch(range(mesh.size))
+            ds = self._dataset(table)
+            return sh.map_shards(
+                mesh, lambda m, *cs: search_counts(
+                    m.reshape(-1), [x.reshape(-1) for x in cs], cards),
+                masks, *[ds.col(d) for d in coded])
+
+        with self._pipeline_slot():
+            hosts = self._staged_fetch_all(launch, metrics)
+        metrics["num_shards"] = mesh.size
+        return np.sum(hosts, axis=0)
+
     def _run_time_boundary(self, query, table) -> QueryResult:
         self.last_metrics = {"host_copies": 0, "route": "manifest"}
         t0, t1 = table.time_boundary
@@ -2205,6 +2597,44 @@ class QueryRunner:
             "size": int(sum(c.get("size", 0) for c in cols.values())),
         }
         return QueryResult(query, [record], [record], self.last_metrics)
+
+
+def _seg_partials(plan, env, valid, seg_mask, consts, lo: int, W: int):
+    """Per-segment partials of the window [lo, lo + W) on one device:
+    the group key extended to (window segment, group). Fused plans run
+    the segment-extended fused reduce (one launch); others (HLL, theta)
+    the generic reduce with the same extended key."""
+    K = plan.total_groups
+    if plan.fused_reason is None:
+        prog = fused_reduce.program(plan, plan.table)
+        sums, mins = fused_reduce.fused_reduce_seg(
+            prog, fused_reduce.program_inputs(prog, env), valid, seg_mask,
+            K, lo, W)
+        return fused_reduce.partials(plan, sums, mins)
+    sl = slice(lo, lo + W)
+    flat = {kind: {c: a[sl].reshape(-1) for c, a in env[kind].items()}
+            for kind in ("cols", "nulls")}
+    base = (valid[sl] & seg_mask[sl, None]).reshape(-1)
+    key, mask, fenv = plan.front_half(flat, base, consts)
+    seg_local = torch.arange(W, dtype=torch.int32, device=key.device) \
+        .repeat_interleave(valid.shape[1])
+    # int32 is safe: tier1_bypass_reason refuses key spaces of 2^31 and
+    # more
+    key2 = seg_local * K + key.to(torch.int32)
+    return group_reduce(key2, mask, fenv, plan.agg_plans, W * K, consts)
+
+
+def _concat_owner_tables(owners: list) -> dict:
+    """The exchange's owner tables (host numpy, each compact: its first
+    `_count` slots live) -> one compact table of their disjoint keys in
+    key order, as the single-device sparse route gives it."""
+    counts = [int(o["_count"]) for o in owners]
+    out = {n: np.concatenate([o[n][:k] for o, k in zip(owners, counts)])
+           for n in owners[0] if n != "_count"}
+    order = np.argsort(out["_keys"], kind="stable")
+    out = {n: v[order] for n, v in out.items()}
+    out["_count"] = np.int32(sum(counts))
+    return out
 
 
 def search_counts(mask: torch.Tensor, codes: list, cards: list) -> \

@@ -48,8 +48,10 @@ In the port the query path's sections are the runner's two stages on
 one CUDA stream: stage 1 (`enqueue`, under dispatch_lock) launches the
 kernels and the non-blocking copy into pinned host memory and records
 an event; stage 2 (`transfer`, `finalize`, `assemble`) waits on that
-event and runs without the lock. `map_stage`'s per-chip transfer
-fan-out waits for the multi-GPU mesh (ROADMAP queue A item 13).
+event and runs without the lock. Under a mesh, stage 2 waits on one
+copy per device through `map_stage` (the per-device transfer fan-out):
+the D waits overlap on the transfer pool's workers, each in that
+worker's own slot.
 """
 
 from __future__ import annotations
@@ -258,11 +260,17 @@ class StagePool:
                 self._gauges()
             if self._sched._m_wait is not None:
                 self._sched._m_wait.observe(waited_ms, stage=self.name)
+            # the task runs in this worker's slot: a section of the same
+            # stage inside it (a mesh's per-device transfer node) is
+            # free, so D tasks on a narrower pool cannot all wait for a
+            # second slot
+            self._local.held = 1
             try:
                 fut._finish(res=ctx.run(fn))
             except BaseException as e:  # noqa: BLE001 - relayed via future
                 fut._finish(err=e)
             finally:
+                self._local.held = 0
                 self._release(token)
 
     def stop(self):

@@ -61,7 +61,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_olap_torch.executor.dataset import has_nulls, resident_dtype
 from tpu_olap_torch.ir.expr import BinOp, Col, Lit
 from tpu_olap_torch.kernels import rowgen, rowprog
 from tpu_olap_torch.kernels.groupby import torch_dtype
@@ -174,6 +173,10 @@ def env_slots(plan, table) -> tuple:
     """(name, kind, dtype) of every stream the runner's env carries for
     this plan (QueryRunner._prepare), then the base mask: the launch's
     input slots."""
+    # imported here: the executor package imports this module's
+    # importers (lowering, row_mask), so a module-level import would
+    # make importing this module first a cycle
+    from tpu_olap_torch.executor.dataset import has_nulls, resident_dtype
     slots = [(c, "col", resident_dtype(table, c)) for c in plan.columns]
     derived = [dp.derived_name for dp in plan.dim_plans
                if dp.cache_token is not None]
@@ -472,12 +475,26 @@ def _launch_gen(prog, inputs, valid, seg_mask, K, window=None):
     p.tile_lo, p.seg_lo = tile_lo, seg_lo
     values = _constants(prog)
     p.consts[:len(values)] = values
-    kern.launch(grid, p, torch.cuda.current_stream(dev).cuda_stream)
+    _launch_on(kern, dev, grid, p)
     if window is None:
         launches += 1
     else:
         seg_launches += 1
     return sums, mins
+
+
+def _launch_on(kern, dev: torch.device, grid: int, params):
+    """Launch a loaded kernel over tensors on `dev`: the kernel must
+    belong to that device's context (a module loaded on one device and
+    launched with another's pointers fails), and the launch runs under
+    the device's context on its current stream. The device comes from
+    the input stacks, never from the engine: under a mesh each device's
+    launch reads that device's stacks."""
+    if kern.device_index != dev.index:
+        raise ValueError(f"kernel loaded on cuda:{kern.device_index} "
+                         f"launched over tensors on {dev}")
+    with torch.cuda.device(dev):
+        kern.launch(grid, params, torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _constants(prog) -> list:
@@ -607,7 +624,6 @@ def _launch_multi(progs, inputs_per_leg, valid, seg_masks, Ks) -> list:
     p.h.valid = valid.data_ptr()
     p.h.seg_rows, p.h.tiles_per_seg, p.h.n_tiles = R, tiles_per_seg, n_tiles
     p.h.vec = int(aligned and R % rowgen.ROWS_PER_THREAD == 0)
-    kern.launch(min(kern.max_blocks, n * n_tiles), p,
-                torch.cuda.current_stream(dev).cuda_stream)
+    _launch_on(kern, dev, min(kern.max_blocks, n * n_tiles), p)
     multi_launches += 1
     return outs

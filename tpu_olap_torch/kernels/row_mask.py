@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from tpu_olap_torch.kernels import rowgen, rowprog
-from tpu_olap_torch.kernels.fused_reduce import env_slots
+from tpu_olap_torch.kernels.fused_reduce import _launch_on, env_slots
 
 TEMPLATE = rowgen.CSRC / "row_mask_gen.cuh"
 KERNEL = "row_mask_gen"
@@ -201,7 +201,6 @@ def _launch(prog, inputs, valid, seg_mask) -> torch.Tensor:
     if values is None:
         values = prog._device["consts"] = rowgen.constants(prog)
     p.consts[:len(values)] = values
-    kern.launch(min(kern.max_blocks, n_tiles), p,
-                torch.cuda.current_stream(dev).cuda_stream)
+    _launch_on(kern, dev, min(kern.max_blocks, n_tiles), p)
     launches += 1
     return out

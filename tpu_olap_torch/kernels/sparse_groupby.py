@@ -19,11 +19,19 @@ by sorting:
   5. "_count" is the true number of groups; past `cap` the runner re-runs
      with the next power of two.
 
-The merge of several devices' compact tables (`merge_sparse` in the JAX
-package) belongs to the multi-GPU path, which is not ported yet.
+Under a mesh (executor.sharding) every device compacts its own rows,
+and the compact tables merge by key (`merge_sparse`, the JAX package's,
+on torch tensors): at the host broker (sparse_merge="gather"), or, under
+"exchange", on owner devices: `exchange` hash-partitions each device's
+compact entries to the owner `owner_of(key)` (a multiplicative hash mod
+D), copies each part device to device and merges per owner. Each owner's
+table is sized to what it received, so the present groups may reach
+D x sparse_group_budget and a skewed key set only loads one owner.
 """
 
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import torch
 
@@ -145,3 +153,132 @@ def sparse_group_reduce(key, mask, env, plans, cap, consts):
         raise UnsupportedAggregation(
             f"sparse group-by does not support {p.kind!r}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Merging compact tables: the mesh's sparse merge
+
+
+def merge_sparse(parts: list, plans, cap) -> dict:
+    """Merge compact tables (one per device, or the parts an owner
+    received): concatenate and re-reduce by key. Values are already
+    partial aggregates, so sums and counts re-sum, min/max re-extremize,
+    HLL registers re-max and theta tables re-merge. "_count" is the
+    merged distinct count, or a part's own count when larger (a part
+    whose table overflowed already dropped groups the merge cannot see;
+    the runner then re-runs with a larger cap)."""
+    keys = torch.cat([p["_keys"] for p in parts])
+    skey, order = torch.sort(keys, stable=True)
+    gid, count = _sorted_segments(skey, cap)
+    for p in parts:
+        if "_count" in p:
+            count = torch.maximum(count, torch.as_tensor(
+                p["_count"], device=count.device).to(torch.int32))
+
+    def gathered(name):
+        return torch.cat([p[name] for p in parts])[order]
+
+    def seg_sum(v):
+        return _seg_sum(v, gid, cap)
+
+    def seg_ext(v, kind):
+        return _seg_ext(v, gid, cap, kind)
+
+    out = {"_count": count, "_rows": seg_sum(gathered("_rows"))}
+    out["_keys"] = seg_ext(skey, "min")
+    for p in plans:
+        if p.kind in ("count", "sum"):
+            out[p.name] = seg_sum(gathered(p.name))
+        elif p.kind in ("min", "max"):
+            out[p.name] = seg_ext(gathered(p.name), p.kind)
+            out[f"_nn_{p.name}"] = seg_sum(gathered(f"_nn_{p.name}"))
+        elif p.kind == "hll":
+            out[p.name] = _seg_max_rows(gathered(p.name), gid, cap)
+        elif p.kind == "theta":
+            out[p.name] = _seg_theta_union(gathered(p.name), gid, cap,
+                                           len(parts))
+        else:
+            raise UnsupportedAggregation(p.kind)
+    return out
+
+
+def _seg_max_rows(v, gid, cap):
+    """Segmented elementwise max of [n, m] rows (HLL register files)."""
+    out = torch.full((cap + 1,) + tuple(v.shape[1:]), _ident(v.dtype, "max"),
+                     dtype=v.dtype, device=v.device)
+    idx = gid.view(-1, *([1] * (v.dim() - 1))).expand_as(v)
+    return out.scatter_reduce_(0, idx, v, "amax")[:cap]
+
+
+def _seg_theta_union(rows, gid, cap, n_parts):
+    """Segmented theta union: [n, k] row-sorted tables with group ids
+    `gid` (sorted; cap = the dropped pad slot) -> [cap, k] merged tables
+    of the k smallest distinct values per group. Each part contributes at
+    most one row per key, so a row's rank within its group is below
+    n_parts; rows rank-scatter into a [cap, n_parts * k] buffer that
+    sorts, drops duplicates and truncates."""
+    n, k = rows.shape
+    dev = rows.device
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    boundary = torch.ones(n, dtype=torch.bool, device=dev)
+    boundary[1:] = gid[1:] != gid[:-1]
+    starts = torch.where(boundary, idx, 0)
+    seg_start = torch.cummax(starts, 0).values if n else starts
+    rank = torch.clamp(idx - seg_start, max=n_parts - 1)
+    slot = gid.to(torch.int64) * n_parts + rank
+    buf = torch.full(((cap + 1) * n_parts, k), theta_mod.EMPTY,
+                     dtype=rows.dtype, device=dev)
+    buf[slot] = rows
+    wide = buf[:cap * n_parts].reshape(cap, n_parts * k)
+    wide, _ = torch.sort(wide, dim=-1)
+    dup = torch.zeros_like(wide, dtype=torch.bool)
+    dup[:, 1:] = wide[:, 1:] == wide[:, :-1]
+    wide, _ = torch.sort(torch.where(dup, theta_mod.EMPTY, wide), dim=-1)
+    return wide[:, :k]
+
+
+def owner_of(keys: torch.Tensor, n_devices: int) -> torch.Tensor:
+    """The owner device of each int64 key under the exchange: the
+    Fibonacci multiplicative hash's high bits, mod D."""
+    h = keys * -7046029254386353131   # 2^64 / golden ratio, wrapped
+    h = (h >> 33) & 0x7FFFFFFF
+    return h % n_devices
+
+
+def exchange(parts: list, counts: list, devices: list, plans,
+             cap_limit: int):
+    """The exchange merge: each device's compact table (`parts[c]` on
+    `devices[c]`, its first `counts[c]` slots live, sorted by key) is
+    split by owner device, each piece copied device to device to its
+    owner, and every owner merges what it received (merge_sparse) into a
+    table of the next power of two of its entries (at least 64), never
+    past `cap_limit`. Returns (per-owner merged tables on their devices,
+    per-owner caps). The split reads one [D] count vector per device back
+    to the host: piece sizes are data."""
+    D = len(devices)
+    names = [n for n in parts[0] if n != "_count"]
+    received: list = [[] for _ in range(D)]
+    for c, (p, n) in enumerate(zip(parts, counts)):
+        owner = owner_of(p["_keys"][:n], D)
+        order = torch.argsort(owner, stable=True)
+        sizes = torch.bincount(owner, minlength=D).tolist()
+        lo = 0
+        for o, sz in enumerate(sizes):
+            if sz:
+                sel = order[lo:lo + sz]
+                received[o].append(
+                    {name: p[name][:n][sel].to(devices[o], non_blocking=True)
+                     for name in names})
+            lo += sz
+    merged, caps = [], []
+    for o, dev in enumerate(devices):
+        got = received[o]
+        n_in = sum(int(g["_keys"].shape[0]) for g in got)
+        cap = min(cap_limit, max(64, 1 << max(0, n_in - 1).bit_length()))
+        if not got:  # an owner nothing hashed to: an empty table
+            got = [{name: parts[0][name][:0].to(dev) for name in names}]
+        with torch.cuda.device(dev) if dev.type == "cuda" \
+                else nullcontext():
+            merged.append(merge_sparse(got, plans, cap))
+        caps.append(cap)
+    return merged, caps
