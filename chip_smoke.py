@@ -253,13 +253,27 @@ Phases, each printing its own line; any failure exits nonzero:
      sys.devices: 4 rows whose hbm_bytes sum to the ledger's, at most
      torch.cuda.memory_allocated. The 4 devices share one card: no
      cross-device copy and no multi-GPU speed is measured.
+  17. the mesh across processes (tpu_olap_torch.bench.multihost), after
+     16, at most 90 s: 2 ranks spawned, each opening a gloo process group
+     (file:// store) and an engine of 2 logical devices on the one card
+     (global D = 4: 50 of the 100 padded segments per rank's card), over
+     the SF1 segments handed over in a file. Every rank runs the 13, x4,
+     scan A, the SEARCH verb, the 13 as one batch, q2.1 with tier 1 on
+     and sys.devices: every answer == phase 4's (or a one-device
+     engine's), rank 0's == rank 1's exactly, B1 2 launches per aggregate
+     per rank and one collective per aggregate (bytes printed), the row
+     mask 2 launches per scan or search, the batch's legs alone and tier
+     1 refused with the JAX package's reasons, sys.devices' process per
+     device; the sum of the 13's p50s at world 2 beside phase 16's. With
+     two cards or more it runs again over NCCL, one card per rank; with
+     one it prints "nccl: not run (1 card)".
   Every engine the smoke builds has fallback_on_device_failure off
   (new_engine), so a failure on the card's path fails the smoke instead
   of being served by the pandas interpreter; (e) turns it on only for
   the serve while the breaker is open.
 Every engine runs pipelined (EngineConfig.pipeline_depth 4) unless a
 phase says otherwise. The phases run in the order 1-4, 10, 5-8, 11, 12,
-13, 14, 15, 16, 9. Every torch.profiler
+13, 14, 15, 16, 17, 9. Every torch.profiler
 reading stands only when
 its profile holds one device activity for each kernel launch, copy and
 fill the host issued in it (`profiled`): the profiler now and then drops
@@ -4131,7 +4145,173 @@ def mesh_phase(seg, tables, frames, tag, flush_l2):
         for e in engines:
             e.close()
         force_virtual_devices(0)
-    return row, fit
+    return row, fit, tot
+
+
+# -- phase 17: the mesh across processes -------------------------------------
+
+MH_WORLD, MH_LOCAL = 2, 2              # ranks, logical devices per rank
+MH_REPS = 3                            # timed runs after each first run
+MH_TIER1 = "multi-host mesh (remote shards not addressable)"
+MH_BATCH = "multi-host mesh legs run alone"
+
+
+def multihost_phase(seg, tables, frames, mesh_p50, workdir, tag,
+                    device="cuda"):
+    """Phase 17: MH_WORLD ranks of MH_LOCAL logical devices each on the
+    one card (global D = 4, as phase 16), spawned by tpu_olap_torch.
+    bench.multihost over gloo, each on the SF1 segments (handed over in
+    a file in `workdir`). Every rank runs the 13, x4, scan A, a coded
+    search, the 13 as one batch, q2.1 with tier 1 on, and sys.devices.
+    Each rank's answers must equal phase 4's (the 13) or a one-device
+    engine's, rank 0's rank 1's exactly; each aggregate launches B1 once
+    per local device and merges by one collective. With two cards or
+    more it runs again over NCCL, one card per rank."""
+    import functools
+
+    import pandas as pd
+    import torch
+    from tpu_olap_torch.bench import multihost, ssb
+    from tpu_olap_torch.bench.parity import assert_frame_parity
+    names = list(ssb.QUERIES)
+    x4 = ssb.DISTINCT_QUERIES["x4"]
+    q21 = ssb.QUERIES["q2.1"]
+    t_phase = time.perf_counter()
+
+    # the one-device references of what phase 4 did not run
+    one = ssb_engine(seg, tables)
+    try:
+        want = {"x4": one.sql(x4), "scan A": one.sql(SCAN_A),
+                "search": one.sql(SEARCH_VERB)}
+    finally:
+        one.close()
+    want.update(frames)
+    path = os.path.join(workdir, "tables.pkl")
+    t = time.perf_counter()
+    multihost.write_tables(path, [
+        ("lineorder", None, {"time_column": ssb.TIME_COL,
+                             "star_schema": ssb.star_schema(),
+                             "segments": seg}),
+        *[(n, tables[n], {"accelerate": False})
+          for n in ("date", "customer", "supplier", "part")]])
+    write_s = time.perf_counter() - t
+    statements = ([(n, ssb.QUERIES[n]) for n in names]
+                  + [("x4", x4), ("scan A", SCAN_A), ("search", SEARCH_VERB),
+                     ("batch", [ssb.QUERIES[n] for n in names]),
+                     ("tier1 q2.1", q21, {"segment_cache_enabled": True,
+                                          "segment_cache_min_rows": 0}),
+                     ("devices", "SELECT * FROM sys.devices")])
+    D = MH_WORLD * MH_LOCAL
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    backends = ["gloo"] + (["nccl"] if cards >= 2 else [])
+    for backend in backends:
+        t = time.perf_counter()
+        ranks = multihost.run(
+            MH_WORLD, MH_LOCAL, backend, device,
+            functools.partial(multihost.file_engine, path=path,
+                              cube_auto_refresh=False),
+            statements, os.path.join(workdir, backend), repeats=MH_REPS,
+            timeout_s=300)
+        wall = time.perf_counter() - t
+        for rec in ranks:
+            r = rec["rank"]
+            if not rec["is_multihost"] or rec["mesh"]["size"] != D \
+                    or rec["imports_jax"]:
+                fail(f"17 {backend} rank {r}: mesh {rec['mesh']}, imports "
+                     f"JAX {rec['imports_jax']}")
+            for label in [*names, "x4", "scan A", "search"]:
+                try:
+                    assert_frame_parity(rec["frames"][label], want[label],
+                                        label=label)
+                except AssertionError as e:
+                    fail(f"17 {backend} rank {r} {label}: differs from the "
+                         f"one-device answer: {e}")
+            for name, got in zip(names, rec["frames"]["batch"]):
+                try:
+                    assert_frame_parity(got, want[name], label=name)
+                except AssertionError as e:
+                    fail(f"17 {backend} rank {r} batch {name}: {e}")
+            for name in names:
+                c, m = rec["counts"][name], rec["metrics"][name]
+                if c["b1"] != MH_LOCAL or c["collectives"] != 1 \
+                        or m.get("merge") != "collective" \
+                        or m.get("strategy") != "broker":
+                    fail(f"17 {backend} rank {r} {name}: B1 launches "
+                         f"{c['b1']} (want {MH_LOCAL}), collectives "
+                         f"{c['collectives']} (want 1), merge "
+                         f"{m.get('merge')}, strategy {m.get('strategy')}")
+            for label in ("scan A", "search"):
+                if rec["counts"][label]["mask"] != MH_LOCAL:
+                    fail(f"17 {backend} rank {r} {label}: row-mask launches "
+                         f"{rec['counts'][label]['mask']} (want {MH_LOCAL})")
+            cb = rec["counts"]["batch"]
+            if cb["multi"] or cb["b1"] != MH_LOCAL * len(names) or \
+                    rec["batch_reasons"]["batch"] != [MH_BATCH] * len(names):
+                fail(f"17 {backend} rank {r} batch: multi-leg launches "
+                     f"{cb['multi']}, B1 {cb['b1']}, reasons "
+                     f"{set(rec['batch_reasons']['batch'])}")
+            m1 = rec["metrics"]["tier1 q2.1"]
+            if m1.get("segment_cache") != f"bypass: {MH_TIER1}" or \
+                    rec["counts"]["tier1 q2.1"]["seg"]:
+                fail(f"17 {backend} rank {r} tier 1: {m1.get('segment_cache')}"
+                     f", segment-extended launches "
+                     f"{rec['counts']['tier1 q2.1']['seg']}")
+            dev = rec["frames"]["devices"]
+            if list(dev.process) != [g // MH_LOCAL for g in range(D)]:
+                fail(f"17 {backend} rank {r} sys.devices: process "
+                     f"{list(dev.process)}")
+        a, b = ranks
+        for label in [*names, "x4", "scan A", "search"]:
+            try:
+                pd.testing.assert_frame_equal(a["frames"][label],
+                                              b["frames"][label],
+                                              check_exact=True)
+            except AssertionError as e:
+                fail(f"17 {backend} {label}: rank 0 != rank 1: {e}")
+        for x, y in zip(a["frames"]["batch"], b["frames"]["batch"]):
+            pd.testing.assert_frame_equal(x, y, check_exact=True)
+        dense = {n: a["metrics"][n]["collective_bytes"] for n in names}
+        print(f"[17 multihost] {backend}: world {MH_WORLD}, global D = {D} "
+              f"({MH_LOCAL} logical devices per rank: rank 0 "
+              f"{a['mesh']['devices']}, rank 1 {b['mesh']['devices']}); "
+              f"segments handed over in a file ({write_s:.1f} s to write), "
+              f"rank build {a['build_s']:.1f} / {b['build_s']:.1f} s; "
+              f"{wall:.1f} s in all {tag}", flush=True)
+        print(f"[17 multihost] {backend}: every rank's 13, x4, scan A, search"
+              f" and batch == the one-device answers; rank 0 == rank 1 "
+              f"exactly; B1 {MH_LOCAL} launches per aggregate per rank "
+              f"({a['totals']['b1']} / {b['totals']['b1']} in all), row mask "
+              f"{MH_LOCAL} per scan or search; one collective per aggregate, "
+              f"bytes delivered per rank {json.dumps(dense)}; x4 "
+              f"{a['counts']['x4']['collectives']} collectives "
+              f"({a['counts']['x4']['collective_bytes']} B), scan A "
+              f"{a['counts']['scan A']['collective_bytes']} B; all "
+              f"collectives {a['totals']['collectives']} / "
+              f"{b['totals']['collectives']} ({a['totals']['collective_bytes']}"
+              f" / {b['totals']['collective_bytes']} B) {tag}", flush=True)
+        print(f"[17 multihost] {backend}: batch of the 13: legs alone "
+              f"('{MH_BATCH}'), multi-leg launches 0; tier 1: "
+              f"'{a['metrics']['tier1 q2.1']['segment_cache']}'; sys.devices "
+              f"process {list(a['frames']['devices'].process)} {tag}",
+              flush=True)
+        for name in names:
+            print(f"[17 p50] {backend} {name}: rank 0 "
+                  f"{a['p50_ms'][name]:.3f} ms | rank 1 "
+                  f"{b['p50_ms'][name]:.3f} ms | first run rank 0 "
+                  f"{a['first_ms'][name]:.1f} ms {tag}", flush=True)
+        tot = [sum(rec["p50_ms"][n] for n in names) for rec in ranks]
+        print(f"[17 p50] sum over the 13 at world {MH_WORLD} ({backend}, the "
+              f"two ranks sharing the card): rank 0 {tot[0]:.3f} ms | rank 1"
+              f" {tot[1]:.3f} ms | phase 16 one process D = 4: "
+              + " | ".join(f"{k} {v:.3f} ms" for k, v in mesh_p50.items()
+                           if k != "D=1")
+              + f" | D=1 {mesh_p50.get('D=1', float('nan')):.3f} ms {tag}",
+              flush=True)
+    if "nccl" not in backends:
+        print(f"[17 multihost] nccl: not run ({cards} card"
+              f"{'' if cards == 1 else 's'}) {tag}", flush=True)
+    print(f"[17 multihost] phase 17 took {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
 
 
 def card_name(tag: str) -> str:
@@ -4462,12 +4642,23 @@ def main():
 
     # -- 16. the mesh ---------------------------------------------------------
     t = time.perf_counter()
-    mesh_row, _ = mesh_phase(seg, tables,
-                             {n: frames[("auto", n)] for n in ssb.QUERIES},
-                             tag, flush_l2)
+    mesh_row, _, mesh_p50 = mesh_phase(
+        seg, tables, {n: frames[("auto", n)] for n in ssb.QUERIES}, tag,
+        flush_l2)
     rows.append(mesh_row)
     print(f"[16 mesh] phase 16 took {time.perf_counter() - t:.1f} s",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 17. the mesh across processes ---------------------------------------
+    workdir = tempfile.mkdtemp(prefix="chip_smoke-multihost-")
+    try:
+        multihost_phase(seg, tables,
+                        {n: frames[("auto", n)] for n in ssb.QUERIES},
+                        mesh_p50, workdir, tag)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
 

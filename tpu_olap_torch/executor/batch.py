@@ -85,15 +85,19 @@ def fusable(plan, mesh=None) -> str | None:
     it runs alone (through the single-query path). Mesh legs fuse too:
     every device runs the group over its own stacks and the broker
     merges each leg; as in the JAX package, whose mesh legs extend their
-    key by the chip, a leg whose D x K reaches 2^31 runs alone."""
+    key by the chip, a leg whose D x K reaches 2^31 runs alone. Across
+    processes every leg runs alone, as in the JAX package."""
     if plan.kind != "agg":
         return "only aggregation plans fuse"
     if plan.sparse:
         return "sparse group-by legs run alone"
     if plan.front_half is None:
         return "plan has no front half"
-    if mesh is not None and mesh.size * plan.total_groups >= (1 << 31):
-        return "chip-extended group key overflows int32"
+    if mesh is not None:
+        if mesh.size * plan.total_groups >= (1 << 31):
+            return "chip-extended group key overflows int32"
+        if sh.is_multihost(mesh):
+            return "multi-host mesh legs run alone"
     return None
 
 
@@ -423,7 +427,7 @@ def _launch_legs(runner, table, plans, metrics_list, fired) -> list:
                   for kind in ("cols", "nulls")} for env in envs],
                 valid[c], [s[c] for s in seg_masks],
                 [cs[c] for cs in consts], win))
-    runner._note_chip_dispatch(range(D))
+    runner._note_chip_dispatch(mesh.local_ids)
     return outs
 
 

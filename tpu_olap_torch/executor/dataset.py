@@ -14,8 +14,10 @@ D with fully invalid segments and every stack is `Sharded`: shard c, on
 mesh device c, holds the segments i with i mod D == c at local index
 i // D (the interleaved placement; `to_place`/`to_logical` map logical
 ids to placed positions and back). The segment mask is sharded the same
-way, and the ledger splits each stack's bytes evenly over the D devices,
-which is exact: every shard has the same shape.
+way, and the ledger splits each stack's bytes evenly over the mesh's
+devices, which is exact: every shard has the same shape. Across
+processes a stack holds only this rank's shards (global devices
+rank·L .. rank·L + L - 1), and the ledger counts only them.
 
 Snapshot swaps (real-time appends, incremental compaction) hand the
 superseded dataset in as `prev`, and each resident stack REBASES on the
@@ -355,16 +357,16 @@ class DeviceDataset:
         n_new = len(self.table.segments)
         keep = [i for i in range(min(n_new, rb["old_n"])) if i not in cset]
         if self.mesh is None:
-            shards, devs, D = [old], [self.device], 1
+            shards, devs, gids, D = [old], [self.device], [0], 1
             new_rows = [n_new]
         else:
-            shards, devs, D = list(old), list(self.mesh.devices), \
-                self.mesh.size
-            new_rows = [self.per_chip] * D
+            shards, devs, gids, D = list(old), list(self.mesh.devices), \
+                list(self.mesh.local_ids), self.mesh.size
+            new_rows = [self.per_chip] * len(devs)
         out = Sharded() if self.mesh is not None else None
-        for c, (src, dev) in enumerate(zip(shards, devs)):
+        for src, dev, c, rows in zip(shards, devs, gids, new_rows):
             # a fresh shard: zeros (padding is fully invalid)
-            dst = torch.zeros((new_rows[c],) + tuple(src.shape[1:]),
+            dst = torch.zeros((rows,) + tuple(src.shape[1:]),
                               dtype=dtype, device=dev)
             mine = [i for i in keep if i % D == c]
             if mine:
@@ -409,8 +411,9 @@ class DeviceDataset:
         Sharded over the mesh."""
         if self.mesh is None:
             return self._put_one(arr, self.device)
-        self.h2d_bytes += arr.nbytes
-        return shard_host(arr, self.mesh)
+        out = shard_host(arr, self.mesh)
+        self.h2d_bytes += out.nbytes
+        return out
 
     def _stack(self, per_segment, dtype=None) -> np.ndarray:
         """[S, R] of every segment in logical order, padded with zero

@@ -294,7 +294,8 @@ class ResultCache:
         served too: its per-(device, segment) partials come back per
         device and merge at the broker (QueryRunner.
         _run_seg_partials_mesh); the budgets below use the padded segment
-        count that launch covers."""
+        count that launch covers. A mesh across processes is refused
+        with the JAX package's reason."""
         if plan.kind != "agg":
             return "not an aggregation plan"
         if plan.sparse or plan.kernel is None:
@@ -305,7 +306,10 @@ class ResultCache:
             return "timeformat dimension layout is interval-dependent"
         n_seg = len(plan.table.segments)
         if mesh is not None:
-            from tpu_olap_torch.executor.sharding import pad_segments
+            from tpu_olap_torch.executor.sharding import (is_multihost,
+                                                         pad_segments)
+            if is_multihost(mesh):
+                return "multi-host mesh (remote shards not addressable)"
             n_seg = pad_segments(max(n_seg, 1), mesh.size)
         from tpu_olap_torch.kernels.groupby import partials_radix
         radix = partials_radix(plan.agg_plans)

@@ -103,6 +103,21 @@ in logical segment order; the sparse group-by merges at the host
 batch launches the multi-leg kernel per device (executor.batch).
 `degrade_shards_on_retry` halves D after repeated device failure. Each
 device's dispatches count in `_chip_dispatches` (sys.devices).
+
+Across processes (torch.distributed initialized by the user over more
+than one rank, `num_shards` = world x L): the mesh is this rank's L
+devices of the global D (sharding.make_multihost_mesh), every rank runs
+the same statements in the same order, and each merge across ranks is
+a collective (executor.collective) issued in stage 1 under
+dispatch_lock, after the rank's own copies are waited on there, so that
+pipelining and threads cannot reorder one rank's collectives against
+another's. Aggregates fold locally as the cost model says, then
+gather_partials folds the ranks' tables in rank order (strategy
+"broker", as the JAX package forces it; merge "collective"); masks and
+Search counts cross in gather_masks; the sparse group-by gathers its
+compact tables (gather_varlen) under the global budget. Tier 1 and
+shared-scan fusion are refused, as in the JAX package. A retry keeps
+the global D, and a statement that has crossed ranks is not retried.
 """
 
 from __future__ import annotations
@@ -117,7 +132,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from tpu_olap_torch.executor import collective
 from tpu_olap_torch.executor import sharding as sh
 from tpu_olap_torch.executor.config import EngineConfig
 from tpu_olap_torch.executor.dataset import DeviceDataset, HbmLedger
@@ -484,13 +501,17 @@ class QueryRunner:
     @property
     def mesh(self):
         """The mesh over `_active_shards` devices (executor.sharding),
-        built on first use; None for one device. The ledger learns the
+        built on first use; None for one device. With torch.distributed
+        initialized over more than one process, the multi-host mesh
+        (this rank's share of the global devices). The ledger learns the
         device count the moment the mesh exists, so every later add
         splits per device."""
         if self._mesh is None and (self._active_shards or 1) > 1:
-            self._mesh = sh.make_mesh(self._active_shards,
-                                      self.config.device)
-            self._ledger.set_num_chips(self._mesh.size)
+            # one process's mesh unless a process group spans several
+            self._mesh = sh.make_multihost_mesh(self._active_shards,
+                                                self.config.device)
+            # the ledger counts this process's devices only
+            self._ledger.set_num_chips(len(self._mesh.devices))
         return self._mesh
 
     def _note_chip_dispatch(self, chips):
@@ -707,19 +728,33 @@ class QueryRunner:
         return self._staged_fetch_all(lambda: [launch()], metrics,
                                       dispatch_span)[0]
 
-    def _staged_fetch_all(self, launch, metrics: dict, dispatch_span=True):
+    def _staged_fetch_all(self, launch, metrics: dict, dispatch_span=True,
+                          merge=None):
         """One two-stage round: stage 1 (`launch()` under the enqueue
         lock, inside a `dispatch` span unless the caller opened one, then
         one queued copy per output it returns: one per mesh device, or
         one) and stage 2 (`_complete_all`, inside a `host-transfer`
         span: every copy's event waited on). Returns the host results in
-        order. A failed stage 2 still releases the pins."""
+        order. A failed stage 2 still releases the pins.
+
+        `merge`, under a multi-process mesh, is the statement's merge
+        across ranks: it takes the host results and issues the
+        collectives (executor.collective). The copies are then waited on
+        in stage 1 and `merge` runs there, under the lock, inside a
+        `collective` span, so that neither pipelining nor threads can
+        reorder one rank's collectives against another's; its value is
+        returned."""
         trs = []
         try:
             with self._enqueue_lock(metrics):
                 with _span("dispatch") if dispatch_span else nullcontext():
                     for out in launch():
                         trs.append(self._enqueue_fetch(out, metrics))
+                if merge is not None:
+                    with _span("host-transfer"):
+                        hosts = self._complete_all(trs, metrics)
+                    with _span("collective"):
+                        return merge(hosts)
             with _span("host-transfer"):
                 return self._complete_all(trs, metrics)
         finally:
@@ -870,7 +905,8 @@ class QueryRunner:
         degrade_shards_on_retry, a retry halves the mesh instead (every
         table's stacks purged and re-placed over the smaller mesh): the
         in-process analog of re-sharding the segment manifest after a
-        device loss."""
+        device loss. Across processes a retry keeps the global D, and a
+        failure after the statement's first collective is not retried."""
         attempts = max(1, self.config.dispatch_retries + 1)
         for attempt in range(attempts):
             try:
@@ -891,7 +927,10 @@ class QueryRunner:
             except Exception as e:
                 metrics.setdefault("retry_errors", []).append(
                     f"{type(e).__name__}: {e}")
-                if attempt + 1 >= attempts:
+                # a statement that already crossed ranks in a
+                # collective is not re-run by this rank alone: its
+                # re-issued collective would meet a peer's next statement
+                if attempt + 1 >= attempts or metrics.get("collectives"):
                     # terminal: one breaker failure (the attempts the
                     # retry layer absorbed are not breaker events)
                     self.breaker.record_failure()
@@ -905,8 +944,12 @@ class QueryRunner:
                 purge_lock = self.dispatch_lock if self._pipelined \
                     else nullcontext()
                 with purge_lock:
+                    # across processes one rank cannot shrink the mesh
+                    # alone: its peers keep the global D, so the ranks'
+                    # segments would overlap and leave some out
                     if self.config.degrade_shards_on_retry and \
-                            (self._active_shards or 1) > 1:
+                            (self._active_shards or 1) > 1 and \
+                            _world() == 1:
                         # a mesh shrink re-places every table
                         self.clear_cache()
                         self._mesh = None
@@ -1249,24 +1292,35 @@ class QueryRunner:
         ledger's exact per-owner-class bytes on it (table columns, cube
         tables, in-flight pins; over every row they sum to bytes_in_use)
         beside the tier-1 cache's byte census, the high-watermark and
-        the headroom against the device's share of hbm_budget_bytes."""
+        the headroom against the device's share of hbm_budget_bytes.
+        Across processes every global device has a row, `process` its
+        rank, as in the JAX package; another rank's bytes and counts are
+        its own to report, and are 0 here."""
         mesh = self.mesh
         if mesh is not None:
-            devs = list(mesh.devices)
+            devs, procs = [], []
+            for r in range(mesh.world):
+                own = mesh if r == mesh.rank else sh.rank_mesh(
+                    r, mesh.world, mesh.size, self.config.device)
+                devs += own.devices
+                procs += [r] * len(own.devices)
+            first = mesh.local_ids.start
+            L = len(mesh.devices)
         else:
             dev = self.device
             if dev.type == "cuda" and dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
-            devs = [dev]
+            devs, procs, first, L = [dev], [0], 0, 1
         D = len(devs)
         seg = [0] * D
-        res_bytes = [0] * D
+        res_bytes = [0] * L
         rebased_cols = rebase_rows = 0
         for _name, ds in list(self._datasets.items()):
             n_seg = len(ds.table.segments)
-            q, r = divmod(ds.resident_bytes(), D)
+            q, r = divmod(ds.resident_bytes(), L)
             for c in range(D):
                 seg[c] += len(range(c, n_seg, D))
+            for c in range(L):
                 res_bytes[c] += q + (1 if c < r else 0)
             rebased_cols += ds.rebased_cols
             rebase_rows += ds.rebase_rows_uploaded
@@ -1279,32 +1333,35 @@ class QueryRunner:
             disp = dict(self._chip_dispatches) if mesh is not None \
                 else {0: self._dispatches}
         rows = []
-        for c, dev in enumerate(devs):
-            col_b = hbm.get((c, "table_columns"), 0)
-            cube_b = hbm.get((c, "cube_tables"), 0)
-            infl_b = hbm.get((c, "inflight"), 0)
+        for g, dev in enumerate(devs):
+            c = g - first   # this process's index of the device
+            mine = 0 <= c < L
+            col_b = hbm.get((c, "table_columns"), 0) if mine else 0
+            cube_b = hbm.get((c, "cube_tables"), 0) if mine else 0
+            infl_b = hbm.get((c, "inflight"), 0) if mine else 0
             in_ledger = col_b + cube_b + infl_b
             rows.append({
-                "index": c,
+                "index": g,
                 "device": str(dev),
                 "platform": dev.type,
-                "process": 0,
+                "process": procs[g],
                 "chips": D,
-                "segments": seg[c],
-                "resident_bytes": int(res_bytes[c]),
-                "dispatches": disp.get(c, 0),
-                "cache_shard_entries": cache_by_chip.get(c, 0),
+                "segments": seg[g],
+                "resident_bytes": int(res_bytes[c]) if mine else 0,
+                "dispatches": disp.get(g, 0),
+                "cache_shard_entries": cache_by_chip.get(g, 0),
                 "rebased_cols": rebased_cols,
                 "rebase_rows_uploaded": rebase_rows,
                 "hbm_bytes": int(in_ledger),
                 "table_column_bytes": int(col_b),
                 "cube_table_bytes": int(cube_b),
                 "inflight_bytes": int(infl_b),
-                "cache_pin_bytes": int(hbm.get((c, "cache_pins"), 0)),
+                "cache_pin_bytes": int(hbm.get((c, "cache_pins"), 0))
+                if mine else 0,
                 "hbm_high_watermark_bytes": int(
-                    hwm[c] if c < len(hwm) else 0),
-                "hbm_headroom_bytes": (int(budget / D - in_ledger)
-                                       if budget else None),
+                    hwm[c] if mine and c < len(hwm) else 0),
+                "hbm_headroom_bytes": (int(budget / L - in_ledger)
+                                       if budget and mine else None),
             })
         return rows
 
@@ -1716,10 +1773,18 @@ class QueryRunner:
         device and copies one table back. A mask plan's per-device row
         masks come back, one copy per device, in logical segment order
         ([S, R] over the table's segments), as every assembler indexes
-        rows by logical segment id."""
+        rows by logical segment id.
+
+        Across processes each rank does the same over its own devices,
+        then merges with the other ranks in stage 1 (executor.
+        collective): an aggregate's locally folded table crosses in one
+        gather_partials, folded in rank order; the strategy is reported as "broker", as the JAX package forces it
+        across processes, and the merge as "collective". A mask plan's
+        masks cross in one gather_masks."""
         mesh = self.mesh
         D = mesh.size
         is_agg = plan.kind == "agg"
+        multi = sh.is_multihost(mesh)
         info = {"strategy": "mask"}
 
         def launch():
@@ -1735,7 +1800,7 @@ class QueryRunner:
                     if strategy == "historicals" and \
                             D * plan.total_groups >= (1 << 31):
                         strategy = "broker"
-                    sp.set(strategy=strategy)
+                    sp.set(strategy="broker" if multi else strategy)
                 info["strategy"] = strategy
                 metrics["cost"] = decision.to_json()
                 win = sh.local_window(plan.pruned_ids, D, per_chip) \
@@ -1751,27 +1816,47 @@ class QueryRunner:
                 outs = sh.launch_per_device(
                     mesh, plan.kernel,
                     sh.device_args(env, valid, seg_mask, consts, win))
-            self._note_chip_dispatch(range(D))
+            self._note_chip_dispatch(mesh.local_ids)
             if info["strategy"] == "broker":
-                with _span("device-fold", num_shards=D):
+                with _span("device-fold", num_shards=len(outs)):
                     outs = [sh.device_fold(outs, plan.agg_plans,
                                            mesh.devices[0])]
             return outs
 
+        def merge(hosts):
+            with sh.on_device(mesh.devices[0]):
+                if not is_agg:
+                    local = np.stack([h.reshape(-1) for h in hosts])
+                    return [m.cpu().numpy() for m in collective.gather_masks(
+                        local, metrics=metrics)]
+                local = hosts[0] if len(hosts) == 1 else \
+                    sh.broker_merge(hosts, plan.agg_plans)
+                return [{n: t.cpu().numpy() for n, t in
+                         collective.gather_partials(
+                             local, plan.agg_plans, metrics=metrics).items()}]
+
         t0 = time.perf_counter()
         with self._pipeline_slot():
-            hosts = self._staged_fetch_all(launch, metrics,
-                                           dispatch_span=False)
+            hosts = self._staged_fetch_all(
+                launch, metrics, dispatch_span=False,
+                merge=merge if multi else None)
         metrics["execute_ms"] = (time.perf_counter() - t0) * 1000
         metrics["num_shards"] = D
-        metrics["strategy"] = info["strategy"]
+        metrics["strategy"] = "broker" if multi and is_agg \
+            else info["strategy"]
         if not is_agg:
+            # every device's mask in global order (across processes,
+            # rank r's rows are devices rL .. rL + L - 1)
             table = plan.table
-            masks = [m.reshape(-1, table.block_rows) for m in hosts]
+            per_dev = [m for rank in hosts for m in rank] if multi else hosts
+            masks = [m.reshape(-1, table.block_rows) for m in per_dev]
             full = np.empty((D * masks[0].shape[0], table.block_rows), bool)
             for c, m in enumerate(masks):
                 full[c::D] = m   # local index l of device c: segment c + lD
             return full[:len(table.segments)]
+        if multi:
+            metrics["merge"] = "collective"
+            return hosts[0]
         if info["strategy"] == "historicals":
             with _span("broker-merge", num_shards=D):
                 out = sh.broker_merge(hosts, plan.agg_plans)
@@ -1887,10 +1972,19 @@ class QueryRunner:
           D x sparse_group_budget, and a skewed key set only loads one
           owner (`result_cap_owner`: the largest owner table).
 
+        Across processes, the JAX package's "gather" contract whatever
+        sparse_merge says, with the merge in stage 1
+        (executor.collective): the ranks agree on the largest local
+        count (all re-run while it overflows the cap), each rank merges
+        its devices' tables, gather_varlen hands every rank the world's
+        tables, and merge_sparse folds them in rank order
+        (`sparse_merge` "collective").
+
         Returns the sparse route's compact table (numpy, sorted by key)."""
         mesh = self.mesh
         D = mesh.size
-        use_exchange = self.config.sparse_merge == "exchange"
+        multi = sh.is_multihost(mesh)
+        use_exchange = not multi and self.config.sparse_merge == "exchange"
         budget = self.config.sparse_group_budget
         cap_limit = min(budget * (D if use_exchange else 1),
                         plan.total_groups)
@@ -1899,6 +1993,30 @@ class QueryRunner:
                                   self.config.sparse_group_cap, local_limit)
         state = {"args": None, "outs": None}
         reruns = []
+
+        def gather(tables, cap=None):
+            # the compact tables merged at the host, under `cap` groups
+            want = max(64, _next_pow2(
+                max(1, sum(int(t["_count"]) for t in tables))))
+            return merge_sparse(
+                [{n: torch.as_tensor(v) for n, v in t.items()}
+                 for t in tables], plan.agg_plans,
+                want if cap is None else min(cap, want))
+
+        def merge_ranks(hosts, cap):
+            # (the world's largest local count, the merged table or None
+            # when that count overflows `cap` and every rank re-runs)
+            with sh.on_device(mesh.devices[0]):
+                local_max = collective.agree_max(
+                    max(int(h["_count"]) for h in hosts), metrics=metrics)
+                if local_max > cap:
+                    return local_max, None
+                local = gather(hosts)
+                merged = gather(collective.gather_varlen(
+                    local, int(local["_count"]), metrics=metrics), cap_limit)
+                return local_max, {n: t.cpu().numpy()
+                                   for n, t in merged.items()}
+
         t0 = time.perf_counter()
         with self._pipeline_slot(), \
                 _span("dispatch", sparse=True, num_shards=D) as sp:
@@ -1909,15 +2027,21 @@ class QueryRunner:
                             *self._prepare(plan, metrics))
                     outs = state["outs"] = sh.launch_per_device(
                         mesh, plan.make_sparse_kernel(cap), state["args"])
-                    self._note_chip_dispatch(range(D))
+                    self._note_chip_dispatch(mesh.local_ids)
                     if use_exchange:  # the tables stay on their devices
                         return [o["_count"] for o in outs]
                     return outs
-                hosts = self._staged_fetch_all(launch, metrics,
-                                               dispatch_span=False)
-                counts = [int(h["_count"] if isinstance(h, dict) else h[0])
-                          for h in hosts]
-                local_max = max(counts)
+                got = self._staged_fetch_all(
+                    launch, metrics, dispatch_span=False,
+                    merge=(lambda hosts, cap=cap: merge_ranks(hosts, cap))
+                    if multi else None)
+                if multi:
+                    local_max, out = got
+                else:
+                    hosts = got
+                    counts = [int(h["_count"] if isinstance(h, dict)
+                                  else h[0]) for h in hosts]
+                    local_max = max(counts)
                 if local_max <= cap:
                     break
                 if local_max > local_limit:
@@ -1927,7 +2051,9 @@ class QueryRunner:
                 reruns.append(cap)
                 cap = min(local_limit, _next_pow2(local_max))
             self._cap_hints[key] = local_max
-            if use_exchange:
+            if multi:
+                metrics["sparse_merge"] = "collective"
+            elif use_exchange:
                 caps = []
 
                 def launch_exchange():
@@ -1945,12 +2071,8 @@ class QueryRunner:
                 metrics["result_cap_owner"] = max(caps)
             else:
                 with _span("broker-merge", num_shards=D):
-                    cap_global = min(cap_limit, max(64, _next_pow2(
-                        max(1, sum(counts)))))
-                    merged = merge_sparse(
-                        [{n: torch.as_tensor(v) for n, v in h.items()}
-                         for h in hosts], plan.agg_plans, cap_global)
-                    out = {n: t.numpy() for n, t in merged.items()}
+                    out = {n: t.numpy()
+                           for n, t in gather(hosts, cap_limit).items()}
             state.clear()
             count = int(out["_count"])
             if count > cap_limit:
@@ -2187,7 +2309,7 @@ class QueryRunner:
                 mesh, lambda e, v, m, c: _seg_partials(plan, e, v, m, c,
                                                        lo, W),
                 sh.device_args(env, valid, seg_mask, consts))
-            self._note_chip_dispatch(range(D))
+            self._note_chip_dispatch(mesh.local_ids)
             return outs
 
         t0 = time.perf_counter()
@@ -2548,7 +2670,8 @@ class QueryRunner:
     def _search_counts_mesh(self, plan, table, coded, cards, metrics):
         """Search's code counts over the mesh: per device, the row mask
         and the counts of its own rows (one copy each), summed on the
-        host; padding segments are invalid rows and count nothing."""
+        host; padding segments are invalid rows and count nothing.
+        Across processes every rank's sum crosses in one gather_masks."""
         mesh = self.mesh
 
         def launch():
@@ -2559,17 +2682,26 @@ class QueryRunner:
             masks = sh.launch_per_device(
                 mesh, plan.kernel,
                 sh.device_args(env, valid, seg_mask, consts))
-            self._note_chip_dispatch(range(mesh.size))
+            self._note_chip_dispatch(mesh.local_ids)
             ds = self._dataset(table)
             return sh.map_shards(
                 mesh, lambda m, *cs: search_counts(
                     m.reshape(-1), [x.reshape(-1) for x in cs], cards),
                 masks, *[ds.col(d) for d in coded])
 
+        def merge(hosts):
+            # across processes: every rank's sum, added in rank order
+            with sh.on_device(mesh.devices[0]):
+                return np.sum([t.cpu().numpy() for t in collective.
+                               gather_masks(np.sum(hosts, axis=0),
+                                            metrics=metrics)], axis=0)
+
         with self._pipeline_slot():
-            hosts = self._staged_fetch_all(launch, metrics)
+            out = self._staged_fetch_all(
+                launch, metrics,
+                merge=merge if sh.is_multihost(mesh) else None)
         metrics["num_shards"] = mesh.size
-        return np.sum(hosts, axis=0)
+        return out if sh.is_multihost(mesh) else np.sum(out, axis=0)
 
     def _run_time_boundary(self, query, table) -> QueryResult:
         self.last_metrics = {"host_copies": 0, "route": "manifest"}
@@ -2766,6 +2898,14 @@ def _np_dtype(dtype: torch.dtype):
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length() if n > 1 else 1
+
+
+def _world() -> int:
+    """The processes of the default torch.distributed group (1 when no
+    group is initialized)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 def _invert_sort_key(k: np.ndarray):

@@ -34,8 +34,21 @@ apart; with one launch per device each device's table is its own.
 On the CPU the mesh is D entries of the CPU device (the counterpart of
 the JAX package's 8 virtual CPU devices); on cards, D <= the cards, or
 up to `utils.platform.force_virtual_devices(n)` logical devices laid
-over the cards round-robin. One process only: `is_multihost` is always
-false (the multi-host mesh needs torch.distributed across processes).
+over the cards round-robin.
+
+Across processes (`make_multihost_mesh`, the counterpart of the JAX
+package's mesh after `jax.distributed.initialize`): the user opens the
+default process group (`torch.distributed.init_process_group`) on every
+rank and gives the engine `num_shards` = world x L. Global device g
+belongs to rank g // L, so rank 0's devices come first, as in
+`jax.devices()`; placement stays interleaved over the global D, so
+logical segment i lives on rank (i mod D) // L. A `Mesh` holds only its
+rank's L devices (`devices`, global ids `local_ids`) beside `rank` and
+`world`; `size` is the global D. Every rank registers the same table,
+uploads only its own shards (`shard_host`) and runs the same statements
+in the same order; the cross-process merges are collectives
+(executor.collective), so every rank assembles the same answer.
+`is_multihost` is true when the mesh spans processes.
 """
 
 from __future__ import annotations
@@ -53,34 +66,89 @@ from tpu_olap_torch.utils.platform import virtual_devices
 
 @dataclass(frozen=True)
 class Mesh:
-    """D logical devices, in mesh order (logical device c holds the
-    segments i with i mod D == c)."""
+    """This process's L logical devices, in mesh order, and its place
+    among the processes: local device c is global device rank·L + c,
+    which holds the segments i with i mod D == rank·L + c. One process:
+    rank 0 of world 1, and the devices are all D."""
     devices: tuple
+    rank: int = 0
+    world: int = 1
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """The global device count D."""
+        return self.world * len(self.devices)
+
+    @property
+    def local_ids(self) -> range:
+        """Global ids of this process's devices, in local order."""
+        n = len(self.devices)
+        return range(self.rank * n, (self.rank + 1) * n)
 
 
 def make_mesh(num_shards: int, device: str = "cuda") -> Mesh:
-    """The mesh of `num_shards` logical devices on `device`'s type. On
-    cuda, more devices than cards raise ValueError unless
-    force_virtual_devices allowed them."""
-    d = int(num_shards)
-    if d < 1:
+    """The mesh of `num_shards` logical devices on `device`'s type in
+    one process. On cuda, more devices than cards raise ValueError
+    unless force_virtual_devices allowed them."""
+    if int(num_shards) < 1:
         raise ValueError(f"num_shards must be >= 1; got {num_shards}")
+    return rank_mesh(0, 1, int(num_shards), device)
+
+
+def make_multihost_mesh(num_shards: int | None = None,
+                        device: str = "cuda") -> Mesh:
+    """The mesh over every process's devices: call it after
+    torch.distributed.init_process_group on every rank (without an
+    initialized group it is the one-process mesh of rank 0). Rank r
+    holds global devices [r·L, (r+1)·L), L = num_shards / world;
+    `num_shards` defaults to every device of every rank, and past them
+    it raises ValueError, as the JAX package's does."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return rank_mesh(dist.get_rank(), dist.get_world_size(),
+                         num_shards, device)
+    return rank_mesh(0, 1, num_shards, device)
+
+
+def rank_mesh(rank: int, world: int, num_shards: int | None = None,
+              device: str = "cuda") -> Mesh:
+    """Rank `rank`'s mesh among `world` processes. On the CPU its L
+    devices are entries of the CPU device (one by default). On cuda the
+    ranks of a host split its cards (rank r takes the cards_per_rank
+    cards from (r x cards_per_rank) mod cards, one card shared when
+    there are fewer cards than ranks) and its L devices are laid over
+    its cards round-robin; more devices than its cards take
+    force_virtual_devices. One process (rank 0 of 1) takes every card."""
+
     kind = torch.device(device).type
     if kind == "cpu":
-        return Mesh(tuple(torch.device("cpu") for _ in range(d)))
-    cards = torch.cuda.device_count()
-    if d > max(cards, virtual_devices()) or cards == 0:
-        raise ValueError(f"num_shards={d} exceeds {cards} devices")
-    return Mesh(tuple(torch.device("cuda", c % cards) for c in range(d)))
+        own, cap, base = 1, None, 0
+    else:
+        cards = torch.cuda.device_count()
+        own = max(1, cards // world)
+        cap = max(own, virtual_devices()) if cards else 0
+        base = (rank * own) % cards if cards else 0
+    total = None if cap is None else world * cap
+    n = int(num_shards or total or world)
+    if n < 1:
+        raise ValueError(f"num_shards must be >= 1; got {num_shards}")
+    if total is not None and n > total:
+        raise ValueError(f"num_shards={n} exceeds {total} devices")
+    if n % world:
+        raise ValueError(f"num_shards={n} does not split over {world} "
+                         f"processes")
+    L = n // world
+    if kind == "cpu":
+        devs = tuple(torch.device("cpu") for _ in range(L))
+    else:
+        devs = tuple(torch.device("cuda", base + c % own) for c in range(L))
+    return Mesh(devs, rank, world)
 
 
 def is_multihost(mesh: Mesh) -> bool:
-    """Always False: the mesh lives in one process."""
-    return False
+    """True when the mesh spans processes: the other ranks' shards are
+    not addressable here, so every merge across them is a collective."""
+    return mesh.world > 1
 
 
 def pad_segments(n_segments: int, num_shards: int) -> int:
@@ -156,11 +224,12 @@ def on_device(dev: torch.device):
 
 
 def shard_host(arr: np.ndarray, mesh: Mesh) -> Sharded:
-    """A host [S_pad, ...] array in LOGICAL order -> its shards, each
-    uploaded to its device (device c takes rows c, c + D, ...)."""
+    """A host [S_pad, ...] array in LOGICAL order -> this process's
+    shards, each uploaded to its device (global device g takes rows
+    g, g + D, ...; the other ranks' rows are not uploaded here)."""
     D = mesh.size
-    return Sharded(torch.from_numpy(np.ascontiguousarray(arr[c::D]))
-                   .to(dev) for c, dev in enumerate(mesh.devices))
+    return Sharded(torch.from_numpy(np.ascontiguousarray(arr[g::D]))
+                   .to(dev) for g, dev in zip(mesh.local_ids, mesh.devices))
 
 
 def map_shards(mesh: Mesh, fn, *args) -> Sharded:
